@@ -1,10 +1,12 @@
 """Configuration dataclasses of the PyTorch port.
 
 A copy of ``GroupingConfig``, ``InstanceHeadConfig`` and ``Config`` from the
-JAX package's ``config.py``: same field names, same defaults, so a config
-built for one package describes the same model in the other.  The CLI
+JAX package's ``config.py``: same field names, same defaults (but for the
+dataset's location), so a config built for one package describes the same
+model in the other.  The CLI
 entry points (``build_option``, ``config_from_namespace``) come with the
-training slice, and the dataset-location fields with the data pipeline.
+trainer's CLI.  ``check_supported`` and ``check_trainable`` refuse the
+values whose code paths are not ported yet.
 """
 
 from __future__ import annotations
@@ -67,6 +69,9 @@ class Config:
     checkpoint_path: str | None = None
     log_dir: str = "log/gcanet"
     resultsSave: bool = False
+    data_path: str = "data/ABC/"      # relative to the working directory
+    train_dataset: str = "train_data.txt"
+    test_dataset: str = "test_data.txt"
     batch_size: int = 3
     eval: bool = False
     debug: bool = False
@@ -117,8 +122,10 @@ class Config:
     # top-k in the port, the same as "xla" (ops/knn.py)
     knn_impl: str = "approx"
     encoder_bf16: bool = False
-    remat: bool = False               # backward-only knob; accepted
-    edge_backward: str = "scatter"    # backward-only knob; accepted
+    # backward knobs: serving ignores them; training refuses all but the
+    # defaults (check_trainable)
+    remat: bool = False
+    edge_backward: str = "scatter"
     shared_graph: bool = False
     nn_nb_inner: int = 32             # graph degree of edge convs 2-3 (0 = nn_nb)
     mesh_shape: str = "1"
@@ -134,8 +141,48 @@ class Config:
     instance_head: InstanceHeadConfig = dataclasses.field(default_factory=InstanceHeadConfig)
 
     @property
+    def lr_decay_step_list(self) -> Tuple[int, ...]:
+        return tuple(int(x) for x in str(self.lr_decay_steps).split(","))
+
+    @property
+    def lr_decay_rate_list(self) -> Tuple[float, ...]:
+        return tuple(float(x) for x in str(self.lr_decay_rates).split(","))
+
+    @property
     def input_channels(self) -> int:
         return 6 if self.mode == 5 else 3
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+def _refuse(unported: dict[str, bool], what: str) -> None:
+    bad = [k for k, v in unported.items() if v]
+    if bad:
+        raise NotImplementedError(f"{what} not ported yet: {', '.join(bad)} "
+                                  f"(see ROADMAP.md)")
+
+
+def check_supported(cfg: Config) -> None:
+    """Raise on config values whose model code paths are not ported yet."""
+    _refuse({
+        "mode": cfg.mode != 5,
+        "ablation": cfg.ablation,
+        "offset_variant": cfg.offset_variant != "kpam",
+        "encoder_bf16": cfg.encoder_bf16,
+        "shared_graph": cfg.shared_graph,
+    }, "model option")
+
+
+def check_trainable(cfg: Config) -> None:
+    """Raise on config values the training path does not honour yet: the
+    recomputing backward (``remat``), the reverse-gather backward
+    (``edge_backward="revgather:M"``), the bf16 step cast
+    (``precision="bf16"``) and data parallelism (``mesh_shape`` > 1)."""
+    check_supported(cfg)
+    _refuse({
+        "remat": cfg.remat,
+        "edge_backward": cfg.edge_backward != "scatter",
+        "precision": cfg.precision != "fp32",
+        "mesh_shape": str(cfg.mesh_shape) not in ("1", ""),
+    }, "training option")

@@ -1,7 +1,8 @@
-"""Synthetic ABC-like clouds (copy of ``synth_object`` from
-``gcanet_tpu/data/synthetic.py``): labelled primitive instances (planes,
-spheres, cylinders, cones) as point blobs on analytic surfaces, with normals.
-The same seed gives the same cloud as the JAX package's function.
+"""Synthetic ABC-like clouds (copy of ``synth_object`` and ``synth_batch``
+from ``gcanet_tpu/data/synthetic.py``): labelled primitive instances
+(planes, spheres, cylinders, cones) as point blobs on analytic surfaces,
+with normals.  The same seed gives the same cloud, and the same training
+batch, as the JAX package's functions.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from typing import Dict
 import numpy as np
 
 from gcanet_tpu_torch.config import Config
+from gcanet_tpu_torch.data.abc_dataset import collate
 
 
 def _unit(v):
@@ -121,3 +123,12 @@ def synth_clouds(cfg: Config, batch_size: int, seed: int = 0,
     objs = [synth_object(cfg, rng, inst_range) for _ in range(batch_size)]
     return (np.stack([o["gt_pc"] for o in objs]),
             np.stack([o["gt_normal"] for o in objs]))
+
+
+def synth_batch(cfg: Config, batch_size: int, seed: int = 0,
+                inst_range: tuple = (3, 9)) -> Dict[str, np.ndarray]:
+    """``batch_size`` clouds from one seed, collated into a training batch
+    (``data/abc_dataset.py::collate``)."""
+    rng = np.random.RandomState(seed)
+    return collate([synth_object(cfg, rng, inst_range)
+                    for _ in range(batch_size)], cfg)

@@ -51,13 +51,21 @@ class GroupNorm(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Batch norm with running statistics (eps 1e-4, the reference's
-    ``norm_fn``), zeroed outside ``active``.  Eval path only: the masked
-    training statistics come with the train step.
+    """Batch norm (eps 1e-4, the reference's ``norm_fn``) whose training
+    statistics are taken over the ``active`` positions only, as batch norm
+    over sparse-conv voxel features is; the output is zeroed outside
+    ``active``.
 
-    ``dim`` is the channel axis of ``x``; ``active`` must broadcast to ``x``.
-    Statistics are applied in fp32 and the result cast back to ``x.dtype``.
+    ``dim`` is the channel axis of ``x``; ``active`` must broadcast to ``x``
+    with size 1 on ``dim`` (training needs it).  Statistics are computed and
+    applied in fp32 and the result cast back to ``x.dtype``.  In training
+    mode the variance is biased, for the normalisation and for the running
+    update alike, and the running statistics move as flax's with
+    ``momentum=0.9`` do: ``running = 0.9 * running + 0.1 * batch``
+    (``nn.BatchNorm``'s would take the unbiased variance).
     """
+
+    momentum = 0.9
 
     def __init__(self, num_features: int, eps: float = 1e-4):
         super().__init__()
@@ -67,15 +75,27 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def _batch_stats(self, x: torch.Tensor, active: torch.Tensor, dim: int):
+        dims = [d for d in range(x.dim()) if d != dim % x.dim()]
+        xf = x.float()
+        m = active.float()
+        cnt = torch.clamp(m.sum(), min=1.0)
+        mean = (xf * m).sum(dim=dims, keepdim=True) / cnt
+        var = (((xf - mean) ** 2) * m).sum(dim=dims, keepdim=True) / cnt
+        return mean, var
+
     def forward(self, x: torch.Tensor, active: torch.Tensor | None = None,
                 dim: int = -1) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("MaskedBatchNorm training statistics are "
-                                      "not ported yet; call .eval()")
         shape = [1] * x.dim()
         shape[dim] = -1
-        y = ((x.float() - self.running_mean.view(shape))
-             * torch.rsqrt(self.running_var.view(shape) + self.eps)
+        if self.training:
+            mean, var = self._batch_stats(x, active, dim)
+            with torch.no_grad():
+                for run, stat in ((self.running_mean, mean), (self.running_var, var)):
+                    run.mul_(self.momentum).add_((1 - self.momentum) * stat.reshape(-1))
+        else:
+            mean, var = self.running_mean.view(shape), self.running_var.view(shape)
+        y = ((x.float() - mean) * torch.rsqrt(var + self.eps)
              * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
         if active is not None:
             y = y * active.to(x.dtype)

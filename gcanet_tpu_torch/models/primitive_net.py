@@ -1,8 +1,10 @@
-"""The flagship GCANet model, eval path (port of
-``gcanet_tpu/models/primitive_net.py``; reference
-models/dgcnn-hais-concat-direct-4.py:537-1499).
+"""The flagship GCANet model (port of ``gcanet_tpu/models/primitive_net.py``;
+reference models/dgcnn-hais-concat-direct-4.py:537-1499).
 
 Encoder + heads + offset module + grouping + voxelisation + instance head.
+``model.train()`` selects the training path (``train=True`` in the JAX
+package): batch statistics in the instance head's norms, random grid
+shifts in the voxelisation, no set aggregation.
 Every parameterised submodule is named after its key in the reference's
 ``model_state_dict`` (without the ``affinitynet.`` prefix), so a reference
 checkpoint or a JAX parameter tree maps onto it key by key
@@ -17,7 +19,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from gcanet_tpu_torch.config import Config
+from gcanet_tpu_torch.config import Config, check_supported
 from gcanet_tpu_torch.models.dgcnn import DGCNNEncoderGn
 from gcanet_tpu_torch.models.instance_head import InstanceHead, InstanceHeadOutput
 from gcanet_tpu_torch.models.layers import (GroupNorm, conv_gn_act, dense_gn,
@@ -52,23 +54,8 @@ def canonicalize_params(raw: torch.Tensor) -> torch.Tensor:
                       unit(raw[..., 15:18]), raw[..., 18:22]], dim=-1)
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise on config values whose code paths are not ported yet."""
-    unsupported = {
-        "mode": cfg.mode != 5,
-        "ablation": cfg.ablation,
-        "offset_variant": cfg.offset_variant != "kpam",
-        "encoder_bf16": cfg.encoder_bf16,
-        "shared_graph": cfg.shared_graph,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)} "
-                                  f"(see ROADMAP.md)")
-
-
 class PrimitiveNet(nn.Module):
-    """Eval-mode flagship model: ``forward(xyz, normals)`` -> ``ModelOutput``.
+    """The flagship model: ``forward(xyz, normals)`` -> ``ModelOutput``.
 
     Weights are random, drawn from ``generator`` (default: seeded with
     ``cfg.seed``), until a checkpoint is loaded.
@@ -118,7 +105,12 @@ class PrimitiveNet(nn.Module):
     def instance_head(self) -> InstanceHead:
         return self._instance_head[0]
 
-    def forward(self, xyz: torch.Tensor, normals: torch.Tensor) -> ModelOutput:
+    def forward(self, xyz: torch.Tensor, normals: torch.Tensor,
+                r1: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> ModelOutput:
+        """In training mode the voxel grids shift by ``r1 [2, 3]`` when
+        given, else by a draw from ``generator`` (on the model's device);
+        both are unused in eval mode."""
         cfg = self.cfg
         b, n, _ = xyz.shape
         num_cls = cfg.num_primitives
@@ -151,19 +143,22 @@ class PrimitiveNet(nn.Module):
                                   torch.cat([x_all, points], dim=-1)))
         pt_offsets = self.offset_pred_block(xyz, opc, embedding)      # [B, N, 3]
 
-        # grouping (dgcnn-4.py:1122-1295)
+        # grouping (dgcnn-4.py:1122-1295), on detached inputs
         cls_argmax = type_logits.argmax(dim=-1).to(torch.int32)
         proposals = grouping_ops.build_proposals(
-            (xyz + pt_offsets).float(), cls_argmax, embedding.float(),
-            param_per_point.float(), num_cls, cfg.grouping,
+            (xyz + pt_offsets).detach().float(), cls_argmax,
+            embedding.detach().float(), param_per_point.detach().float(),
+            num_cls, cfg.grouping,
             max_proposals=cfg.instance_head.max_proposals,
-            using_set_aggr=cfg.using_set_aggr)
+            using_set_aggr=(not self.training) and cfg.using_set_aggr)
 
-        # per-proposal voxelisation and instance head (dgcnn-4.py:1300-1392)
+        # per-proposal voxelisation and instance head (dgcnn-4.py:1300-1392);
+        # the head's gradient reaches the embedding through the voxel means
         vx = vox_ops.clusters_voxelization(
             xyz.reshape(b * n, 3), embedding.reshape(b * n, -1),
             proposals.point_pid, num_proposals=cfg.instance_head.max_proposals,
-            grid_size=cfg.instance_head.grid_size)
+            grid_size=cfg.instance_head.grid_size,
+            rand_quantize=self.training, r1=r1, generator=generator)
         instance = self.instance_head(vx.feats, vx.active, vx.entry_voxel,
                                       proposals.point_pid)
 

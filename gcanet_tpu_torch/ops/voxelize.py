@@ -1,9 +1,11 @@
 """Proposal voxelisation for the instance head (port of
-``gcanet_tpu/ops/voxelize.py::clusters_voxelization``, serving path).
+``gcanet_tpu/ops/voxelize.py::clusters_voxelization``).
 
 Each proposal's points are rescaled into a dense G^3 grid
 (dgcnn-4.py:1300-1355); voxel features are the scatter-mean of the point
-features.  The training-time random quantisation comes with the train step.
+features, so the gradient of the voxel features flows back into the point
+features.  Training shifts every grid by a random offset
+(``rand_quantize``).
 """
 
 from __future__ import annotations
@@ -25,16 +27,19 @@ class VoxelizedProposals(NamedTuple):
     entry_voxel: torch.Tensor
 
 
-@torch.no_grad()
 def clusters_voxelization(coords: torch.Tensor,      # [B*N, 3]
                           feats: torch.Tensor,       # [B*N, C]
                           point_pid: torch.Tensor,   # [CH, B*N], -1 = none
                           num_proposals: int,
                           grid_size: int,
                           rand_quantize: bool = False,
+                          r1: torch.Tensor | None = None,
+                          generator: torch.Generator | None = None,
                           scale: float | None = None) -> VoxelizedProposals:
-    if rand_quantize:
-        raise NotImplementedError("rand_quantize is training-only and not ported yet")
+    """``rand_quantize`` shifts each proposal's grid by one ``[2, 3]``
+    uniform draw shared by every proposal (``torch.rand(3)`` at
+    dgcnn-4.py:1341-1342): ``r1`` when given, else drawn from
+    ``generator`` (which must live on ``coords``' device)."""
     ch, n_total = point_pid.shape
     g = grid_size
     g3 = g * g * g
@@ -54,6 +59,13 @@ def clusters_voxelization(coords: torch.Tensor,      # [B*N, 3]
     clusters_scale = 1.0 / torch.clamp(extent, min=1e-12) - 0.01
     clusters_scale = torch.clamp(clusters_scale, max=scale)  # [P]
     cmin = cmin * clusters_scale[:, None]
+    if rand_quantize:
+        if r1 is None:
+            r1 = torch.rand((2, 3), generator=generator, device=coords.device)
+        r1 = r1.to(cmin)
+        rng_range = cmax * clusters_scale[:, None] - cmin
+        cmin = cmin - torch.clamp(g - rng_range - 0.001, min=0.0) * r1[0]
+        cmin = cmin - torch.clamp(g - rng_range + 0.001, max=0.0) * r1[1]
 
     pid_c = torch.clamp(entry_pid, 0, p - 1).long()
     e_scale = torch.where(entry_valid, clusters_scale[pid_c], 0.0)

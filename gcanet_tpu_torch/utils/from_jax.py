@@ -139,11 +139,18 @@ def _from_flax(kind: str, leaf: str, w: np.ndarray) -> np.ndarray:
     return w
 
 
-def state_dict_from_jax(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:
+def state_dict_from_jax(params: Mapping, batch_stats: Mapping | None
+                        ) -> dict[str, torch.Tensor]:
     """Flax ``(params, batch_stats)`` trees of the JAX ``PrimitiveNet``, as
-    nested dicts of numpy arrays, -> a state_dict of the port's ``PrimitiveNet``."""
+    nested dicts of numpy arrays, -> a state_dict of the port's ``PrimitiveNet``.
+
+    Every transform is a transpose or a flip, so a gradient tree of the
+    params maps the same way onto the port's ``.grad`` tensors; pass
+    ``batch_stats=None`` to map the params alone."""
     out: dict[str, torch.Tensor] = {}
     for prefix, fpath, kind, has_bias in build_rules():
+        if kind == BN_STATS and batch_stats is None:
+            continue
         node = batch_stats if kind == BN_STATS else params
         for name in fpath:
             node = node[name]
