@@ -28,12 +28,24 @@ Phases (any failure ends the run with a non-zero exit):
      default (see ``TRAIN_*`` for what is held how); proposals exactly on
      identical inputs;
   8. training at full width (default ``Config``, B=3) through
-     ``Trainer.train_one_epoch``: 2 warm-up steps, then 5 timed steps with
-     the launch counts set to 0 just before and read just after: ms/step,
-     examples/s, peak memory, every step's losses (all finite), the CC
-     kernel's launches per step and sweeps per cloud;
+     ``Trainer.train_one_epoch``: a warm-up epoch, then an epoch of 2
+     warm-up and 5 timed steps with the launch counts set to 0 just before
+     and read just after: ms/step, examples/s, peak memory, every step's
+     losses (all finite), the CC kernel's launches per step and sweeps per
+     cloud;
   9. ``torch.profiler`` over two full-width train steps, forward and
-     backward together.
+     backward together;
+ 10. the eval step, card against CPU (N=2048, TF32 off), top-k selections
+     and proposals replayed: every loss, and the merged labels exactly;
+ 11. the CLI entry point at full width, in-process:
+     ``gcanet_tpu_torch.train_new.main`` trains 2 epochs of 2 synthetic
+     batches (B=3), evaluating the 8 synthetic eval clouds (B=1) after each
+     and keeping its checkpoints; then ``main([..., "--eval"])`` evaluates
+     ``latest.tar`` again and must reproduce epoch 1's record; the host
+     ``get_instances`` + ``merge_masks`` must give the card's merged labels
+     on each eval cloud.  ms per train step (CUDA events), ms per eval cloud
+     (host clock around ``test_one_epoch``), the CC kernel's launches in
+     each run, and eval's peak memory.
 Weights are random from a seed, with three pushes so that the path after
 grouping does real work (see ``push_weights``).
 
@@ -45,7 +57,9 @@ and prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -54,6 +68,7 @@ import time
 import numpy as np
 import torch
 
+from gcanet_tpu_torch import train_new
 from gcanet_tpu_torch.config import Config, GroupingConfig, InstanceHeadConfig
 from gcanet_tpu_torch.data.synthetic import synth_batch, synth_clouds
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
@@ -63,8 +78,10 @@ from gcanet_tpu_torch.ops import voxelize as vox_ops
 from gcanet_tpu_torch.serve import Predictor
 from gcanet_tpu_torch.train import instances as inst_utils
 from gcanet_tpu_torch.train import step as step_lib
+from gcanet_tpu_torch.train import trainer as trainer_mod
 from gcanet_tpu_torch.train.trainer import Trainer
 from gcanet_tpu_torch.utils import kernels
+from gcanet_tpu_torch.utils.transfer import fetch
 
 # memory rates of the cards this runs on (NVIDIA data sheets), bytes/s
 HBM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12, "H200": 4.8e12}
@@ -98,6 +115,11 @@ TRAIN_GRAD_RTOL = 1e-3
 TRAIN_GRAD_ATOL_SHARE = {"rest": 1e-3, "inst": 2e-2}
 TRAIN_STATS = dict(rtol=1e-3, atol=1e-5)
 TRAIN_BF16_MIN_COSINE = 0.9
+
+# ``main([..., "--eval"])`` on latest.tar against the training run's last
+# eval record: the same weights on the same clouds; the losses sum in
+# another order where float atomics (index_add_) do, the metrics are exact
+EVAL_REPEAT_LOSS_RTOL = 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -143,9 +165,18 @@ def time_graph(fn, iters: int) -> float:
     return start.elapsed_time(end) / (3 * iters)
 
 
+def _reset_launches() -> None:
+    for wrapper, _, _ in KERNELS:
+        wrapper.launches = 0
+
+
+def _launches() -> dict:
+    return {w.__name__: w.launches for w, _, _ in KERNELS}
+
+
 # ---------------------------------------------------------------- phases
 
-def phase_card() -> str:
+def phase_card() -> tuple[str, str]:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
@@ -153,7 +184,7 @@ def phase_card() -> str:
     name = torch.cuda.get_device_name(0)
     print(f"[card] torch: {name}, {torch.cuda.device_count()} device(s), "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    return name
+    return name, smi
 
 
 def phase_build() -> None:
@@ -417,8 +448,7 @@ def phase_serving(card_name: str, max_err: float) -> list[dict]:
     pred.predict_batch(xyz, nrm)
     torch.cuda.synchronize()
 
-    for wrapper, _, _ in KERNELS:
-        wrapper.launches = 0
+    _reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     singles = [pred.predict(xyz[i], nrm[i]) for i in range(reps)]
@@ -427,7 +457,7 @@ def phase_serving(card_name: str, max_err: float) -> list[dict]:
     for _ in range(reps):
         batch = pred.predict_batch(xyz, nrm)
     t_batch = time.perf_counter() - t0
-    launches = {w.__name__: w.launches for w, _, _ in KERNELS}
+    launches = _launches()
     peak = torch.cuda.max_memory_allocated()
     clouds = reps + reps * b
 
@@ -622,9 +652,12 @@ def phase_train_card_vs_cpu() -> None:
           f"(num {int(props_cpu.num)})")
 
 
-def _time_steps(trainer: Trainer, epoch: int, steps: int):
-    """``steps`` steps of ``trainer.train_one_epoch``, each bracketed by CUDA
-    events and a read of the CC kernel's launch count."""
+@contextlib.contextmanager
+def step_events():
+    """While open, every ``step_lib.train_step`` call is bracketed by CUDA
+    events, a host clock read at its start and a read of the CC kernel's
+    launch count; yields the list of ``(start, end, launches, result,
+    host_start)``."""
     marks = []
     real = step_lib.train_step
 
@@ -632,62 +665,73 @@ def _time_steps(trainer: Trainer, epoch: int, steps: int):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         before = cc.masked_min_sweep.launches
+        host_start = time.perf_counter()
         start.record()
         out = real(*args, **kw)
         end.record()
-        marks.append((start, end, cc.masked_min_sweep.launches - before))
+        marks.append((start, end, cc.masked_min_sweep.launches - before, out, host_start))
         return out
 
     step_lib.train_step = timed
     try:
-        history = trainer.train_one_epoch(epoch, num_batches=steps)
+        yield marks
     finally:
         step_lib.train_step = real
-    torch.cuda.synchronize()
-    return history, [(s.elapsed_time(e), n) for s, e, n in marks]
+        torch.cuda.synchronize()
 
 
 def phase_training(log_dir: str) -> int:
-    """Phase 8: full width through ``Trainer.train_one_epoch``.  Returns the
-    CC kernel's launches in the timed steps."""
+    """Phase 8: full width through ``Trainer.train_one_epoch``: a warm-up
+    epoch of 2 steps, then one epoch of 2 + 5 steps whose last 5 are timed.
+    The window runs from the start of the epoch's 3rd step to the end of
+    its 7th, so it holds what a long epoch repeats (a step; the next batch
+    made and copied on the prefetch thread) and not what an epoch does
+    once (starting that thread, which slows the epoch's first step; its
+    time is printed apart).  Returns the CC kernel's launches in the
+    epoch."""
     cfg = Config(log_dir=log_dir, data_path=log_dir)
-    steps, b = 5, cfg.batch_size
+    warm, steps, b = 2, 5, cfg.batch_size
     trainer = Trainer(cfg)
     try:
         push_weights(trainer.model)
-        trainer.train_one_epoch(0, num_batches=2)              # warm-up
+        trainer.train_one_epoch(0, num_batches=2)              # first use: builds, cuDNN
         torch.cuda.synchronize()
-        for wrapper, _, _ in KERNELS:
-            wrapper.launches = 0
+        _reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        history, per_step = _time_steps(trainer, 1, steps)
-        end.record()
-        end.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {w.__name__: w.launches for w, _, _ in KERNELS}
+        with step_events() as marks:
+            history = trainer.train_one_epoch(1, num_batches=warm + steps)
+        wall = time.perf_counter() - marks[warm][4]
+        launches = _launches()
         peak = torch.cuda.max_memory_allocated()
+        # what the prefetch thread copied equals the host batch, bit for bit
+        host = [synth_batch(cfg, b, seed=1000 + i) for i in range(4)]
+        for i, dev in enumerate(trainer_mod.prefetch_to_device(iter(host), "cuda")):
+            for k, v in host[i].items():
+                check(np.array_equal(dev[k].cpu().numpy(), v), f"prefetched {k} differs")
     finally:
         trainer.close()
-    ms = start.elapsed_time(end) / steps
+    ms = marks[warm][0].elapsed_time(marks[-1][1]) / steps
+    per_step = [(s.elapsed_time(e), n) for s, e, n, _, _ in marks]
+    timed = per_step[warm:]
     totals = [float(m["total_loss"]) for m in history]
     print(f"[train] N={cfg.num_points} B={b} K={cfg.nn_nb} P={cfg.instance_head.max_proposals} "
-          f"grid={cfg.instance_head.grid_size}, {steps} steps after 2 warm-up steps: "
-          f"{ms:.1f} ms/step (CUDA events; host clock {wall / steps * 1e3:.1f}), "
+          f"grid={cfg.instance_head.grid_size}, {steps} steps after {warm} warm-up steps of "
+          f"one epoch: {ms:.1f} ms/step (CUDA events; host clock {wall / steps * 1e3:.1f}), "
           f"{b * 1e3 / ms:.2f} examples/s, peak memory {peak / 2**30:.2f} GiB")
-    print(f"[train] per step ms: {[round(t, 1) for t, _ in per_step]}; CC launches per "
-          f"step: {[n for _, n in per_step]}")
-    for i, m in enumerate(history):
+    print(f"[train] per step ms (the epoch's first {warm} untimed): "
+          f"{[round(t, 1) for t, _ in per_step]}; CC launches per step: "
+          f"{[n for _, n in per_step]}")
+    print(f"[train] {len(host)} prefetched batches equal the host's bit for bit")
+    for i, m in enumerate(history[warm:]):
         print(f"[train] step {i}: " + ", ".join(f"{k} {float(v):.4g}" for k, v in m.items()))
     check(all(np.isfinite(totals)), f"non-finite total_loss {totals}")
     check(all(n > 0 for _, n in per_step), "a train step launched no CC sweep")
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the training path")
-    print(f"[train] launches on the training path ({steps} steps, {steps * b} clouds): "
-          f"{launches}; masked_min_sweep per step {launches['masked_min_sweep'] / steps:.1f}, "
-          f"sweeps per cloud {launches['masked_min_sweep'] / (steps * b):.1f}")
+    timed_launches = sum(n for _, n in timed)
+    print(f"[train] launches on the training path ({warm + steps} steps): {launches}; "
+          f"masked_min_sweep per timed step {timed_launches / steps:.1f}, sweeps per cloud "
+          f"{timed_launches / (steps * b):.1f}")
     return launches["masked_min_sweep"]
 
 
@@ -734,13 +778,194 @@ def phase_train_profile(log_dir: str) -> None:
         trainer.close()
 
 
+def eval_step_card_vs_cpu(cfg: Config, state: dict, batch_np: dict) -> dict:
+    """The eval step on the card and on the CPU from the same weights and
+    batch, the card's top-k selections and proposals replayed on the CPU:
+    every loss to a tolerance (``inst_loss`` and the total out of the bf16
+    head at ``CARD_VS_CPU_BF16``) and the merged labels exactly.  Returns
+    the worst loss error and what the path did; raises on a difference."""
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = PrimitiveNet(cfg).to(dev)
+        models[dev].load_state_dict(state)
+    with TopkReplay() as topk, ProposalReplay() as props:
+        card = step_lib.eval_step(models["cuda"], step_lib.batch_to_device(batch_np, "cuda"))
+        topk.replaying = props.replaying = True
+        cpu = step_lib.eval_step(models["cpu"], step_lib.batch_to_device(batch_np, "cpu"))
+    worst = 0.0
+    for k, w in dict(cpu[3], total_loss=cpu[2]).items():
+        g = dict(card[3], total_loss=card[2])[k].cpu()
+        check(bool(torch.isfinite(g)), f"eval {k} not finite on the card")
+        head = models["cuda"].instance_head.compute_bf16 and k in ("inst_loss", "total_loss")
+        tol = CARD_VS_CPU_BF16 if head else TRAIN_LOSS
+        check(torch.allclose(g, w, **tol), f"eval {k}: card {float(g)} CPU {float(w)}")
+        worst = max(worst, float((g - w).abs()) / max(abs(float(w)), 1e-12))
+    merged_card, merged_cpu = card[1].cpu(), cpu[1]
+    check(torch.equal(merged_card, merged_cpu), "eval merged labels differ between card and CPU")
+    return {"loss_max_rel_err": worst, "topk_rows_differing": topk.differing,
+            "cpu_proposals_equal": props.own_equal, "proposals": int(cpu[0].proposals.num),
+            "distinct_merged_labels": int(merged_cpu.unique().numel())}
+
+
+def phase_eval_card_vs_cpu() -> None:
+    """Phase 10: the eval step, card against CPU, on one N=2048 cloud."""
+    cfg = Config(num_points=2048, instance_head=InstanceHeadConfig(max_proposals=24))
+    model = PrimitiveNet(cfg)
+    push_weights(model)
+    res = eval_step_card_vs_cpu(cfg, model.state_dict(), synth_batch(cfg, 1, seed=5))
+    check(res["proposals"] > 0 and res["distinct_merged_labels"] > 1,
+          "the reduced eval step kept no instance")
+    print("[eval-vs-cpu] " + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                                       for k, v in res.items())
+          + f"; tolerances: losses {TRAIN_LOSS} (inst_loss and total {CARD_VS_CPU_BF16}), "
+          f"merged labels exact")
+
+
+@contextlib.contextmanager
+def cli_hooks(synth_batches: int):
+    """While open: synthetic epochs of ``synth_batches`` batches, every
+    model the trainer builds gets ``push_weights``, and every ``Trainer``
+    that ``train_new.main`` builds is recorded, with the host-clock seconds
+    of each ``test_one_epoch`` call.  Yields ``(trainers, eval_seconds)``."""
+    trainers, eval_seconds = [], []
+    real_build, real_trainer = trainer_mod.build_model, train_new.Trainer
+
+    def pushed(cfg):
+        model = real_build(cfg)
+        push_weights(model)
+        return model
+
+    class Recorded(real_trainer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            trainers.append(self)
+
+        def test_one_epoch(self, epoch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = super().test_one_epoch(epoch)
+            torch.cuda.synchronize()
+            eval_seconds.append(time.perf_counter() - t0)
+            return res
+
+    old = os.environ.get("GCA_SYNTH_BATCHES")
+    os.environ["GCA_SYNTH_BATCHES"] = str(synth_batches)
+    trainer_mod.build_model, train_new.Trainer = pushed, Recorded
+    try:
+        yield trainers, eval_seconds
+    finally:
+        trainer_mod.build_model, train_new.Trainer = real_build, real_trainer
+        if old is None:
+            del os.environ["GCA_SYNTH_BATCHES"]
+        else:
+            os.environ["GCA_SYNTH_BATCHES"] = old
+
+
+def _host_pair_matches_device(log_dir: str, n_clouds: int) -> list[int]:
+    """``get_instances`` + ``merge_masks`` on the host, from the fetched
+    outputs of latest.tar's eval step on each synthetic eval cloud, against
+    the card's ``merged_labels_device``; returns the kept instances per
+    cloud."""
+    cfg = Config()
+    model = trainer_mod.build_model(cfg).cuda()
+    ckpt = torch.load(os.path.join(log_dir, "checkpoint", "latest.tar"), map_location="cuda",
+                      weights_only=True)
+    model.load_state_dict(ckpt["model_state_dict"])
+    kept = []
+    for i in range(n_clouds):
+        batch = step_lib.batch_to_device(synth_batch(cfg, 1, seed=90000 + i), "cuda")
+        out, merged, _, _ = step_lib.eval_step(model, batch)
+        pid, sem, cls_s, iou_s, mask_s, valid, merged = fetch([
+            out.proposals.point_pid, out.semantic_scores, out.instance.cls_scores,
+            out.instance.iou_scores, out.instance.mask_scores, out.proposals.valid, merged])
+        insts = inst_utils.get_instances(pid, sem, cls_s, iou_s, mask_s, valid,
+                                         cfg.num_primitives)
+        kept.append(len(insts))
+        if insts:
+            check(np.array_equal(inst_utils.merge_masks(insts), merged),
+                  f"eval cloud {i}: host get_instances + merge_masks differ from the card")
+        else:
+            check(not merged.any(), f"eval cloud {i}: no instance kept, labels not all 0")
+    return kept
+
+
+def phase_cli(smi: str) -> dict:
+    """Phase 11: ``train_new.main`` at full width, training and then
+    ``--eval``.  Returns the CC kernel's launches in each run."""
+    n_eval = 8                                      # the trainer's synthetic eval clouds
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as root, \
+            cli_hooks(synth_batches=2) as (trainers, eval_seconds):
+        log_dir = os.path.join(root, "log")
+        argv = ["--log_dir", log_dir, "--data_path", os.path.join(root, "none"),
+                "--max_epoch", "2", "--eval_interval", "1", "--save_interval", "1"]
+        _reset_launches()
+        with step_events() as marks:
+            check(train_new.main(argv + ["--not_load_model"]) == 0, "main (train) exit code")
+        train_run = _launches()["masked_min_sweep"]
+        cfg = trainers[0].cfg
+        steps = [(s.elapsed_time(e), n, out) for s, e, n, out, _ in marks]
+        ckpts = set(os.listdir(os.path.join(log_dir, "checkpoint")))
+        check({"eval0.tar", "eval1.tar", "latest.tar"} <= ckpts, f"checkpoints {sorted(ckpts)}")
+        check(bool(ckpts & {"max_miou.tar", "max_type_miou.tar"}), "no best-metric checkpoint")
+        check(os.path.exists(os.path.join(log_dir, "output_results.csv")), "no results CSV")
+        with open(os.path.join(log_dir, "scalars_test.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        check(len(records) == 2, f"{len(records)} test records after 2 epochs")
+
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        check(train_new.main(argv + ["--eval"]) == 0, "main (--eval) exit code")
+        eval_run = _launches()["masked_min_sweep"]
+        eval_peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(log_dir, "scalars_test.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        kept = _host_pair_matches_device(log_dir, n_eval)
+
+    check(len(trainers) == 2 and all(t.eval_errors == 0 for t in trainers),
+          f"eval errors {[t.eval_errors for t in trainers]}")
+    check(all(bool(torch.isfinite(v)) for _, _, m in steps for v in m.values()),
+          "a CLI train step's loss is not finite")
+    check(all(np.isfinite(v) for r in records for v in r.values()), "a test record is not finite")
+    epoch1, again = records[1], records[2]
+    check(again["step"] == 2, f"--eval resumed at epoch {again['step']}, not 2")
+    check((again["miou"], again["type_miou"]) == (epoch1["miou"], epoch1["type_miou"]),
+          f"--eval metrics {again['miou']}, {again['type_miou']} differ from epoch 1's "
+          f"{epoch1['miou']}, {epoch1['type_miou']}")
+    loss_err = max(abs(again[k] - epoch1[k]) / max(abs(epoch1[k]), 1e-12)
+                   for k in epoch1 if k not in ("step", "time", "miou", "type_miou"))
+    check(loss_err <= EVAL_REPEAT_LOSS_RTOL, f"--eval losses differ from epoch 1's by {loss_err}")
+
+    b, n = cfg.batch_size, cfg.num_points
+    step_ms = [t for t, _, _ in steps]
+    eval_ms = [1e3 * t / n_eval for t in eval_seconds]
+    step_launches = sum(k for _, k, _ in steps)
+    print(f"[cli] main(train): N={n} B={b}, {len(steps)} steps in 2 epochs, eval of "
+          f"{n_eval} clouds (B=1) after each; ms per train step (CUDA events) "
+          f"{[round(t, 1) for t in step_ms]}, after the first "
+          f"{np.mean(step_ms[1:]):.1f} ms ({smi})")
+    print(f"[cli] ms per eval cloud (host clock around test_one_epoch): epoch 0 "
+          f"{eval_ms[0]:.1f}, epoch 1 {eval_ms[1]:.1f}, --eval {eval_ms[2]:.1f}; eval peak "
+          f"memory {eval_peak / 2**30:.2f} GiB ({smi})")
+    print(f"[cli] masked_min_sweep launches: train run {train_run} (train steps "
+          f"{step_launches}, evals {train_run - step_launches}); --eval run {eval_run}, "
+          f"{eval_run / n_eval:.1f} sweeps per eval cloud ({smi})")
+    print(f"[cli] --eval reproduces epoch 1: miou {again['miou']:.4f}, type_miou "
+          f"{again['type_miou']:.4f} exact, losses max relative difference {loss_err:.3g} "
+          f"(rtol {EVAL_REPEAT_LOSS_RTOL}); eval_errors {[t.eval_errors for t in trainers]}; "
+          f"host get_instances + merge_masks equal to the card's labels, kept instances per "
+          f"cloud {kept}")
+    check(train_run > 0 and eval_run > 0, "the CLI path launched no CC sweep")
+    check(sum(kept) > 0, "no eval cloud kept an instance")
+    return {"cli_train": train_run, "cli_eval": eval_run}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    card_name = phase_card()
+    card_name, smi = phase_card()
     phase_build()
     max_err = phase_kernel_check()
     phase_card_vs_cpu()
@@ -750,9 +975,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as log_dir:
         train_launches = phase_training(log_dir)
         phase_train_profile(log_dir)
+    phase_eval_card_vs_cpu()
+    cli_launches = phase_cli(smi)
     row = kernel_rows[0]
-    row["launches_by_path"] = {"serve": row["launches"], "train": train_launches}
-    row["launches"] += train_launches
+    row["launches_by_path"] = {"serve": row["launches"], "train": train_launches,
+                               **cli_launches}
+    row["launches"] += train_launches + sum(cli_launches.values())
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

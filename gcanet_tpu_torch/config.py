@@ -1,16 +1,16 @@
 """Configuration dataclasses of the PyTorch port.
 
-A copy of ``GroupingConfig``, ``InstanceHeadConfig`` and ``Config`` from the
-JAX package's ``config.py``: same field names, same defaults (but for the
-dataset's location), so a config built for one package describes the same
-model in the other.  The CLI
-entry points (``build_option``, ``config_from_namespace``) come with the
-trainer's CLI.  ``check_supported`` and ``check_trainable`` refuse the
-values whose code paths are not ported yet.
+A copy of ``GroupingConfig``, ``InstanceHeadConfig``, ``Config`` and the CLI
+(``build_option``, ``config_from_namespace``) from the JAX package's
+``config.py``: same field names, same defaults, same flags, so one argv gives
+the same config in both packages.  ``check_supported`` and
+``check_trainable`` refuse the values whose code paths are not ported yet;
+the CLI parses them and leaves the refusal to the entry points.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from typing import Tuple
 
@@ -45,6 +45,13 @@ class GroupingConfig:
     item_batch_mode: str = "map"
 
 
+def scene_grouping_defaults(base: GroupingConfig | None = None) -> GroupingConfig:
+    """Scene-family grouping constants (the SoftGroup scannetv2 recipe):
+    ``score_thr`` 0.2, ``npoint_thr`` 0.05, classes 0/1 not grouped."""
+    return dataclasses.replace(base if base is not None else GroupingConfig(),
+                               score_thr=0.2, npoint_thr=0.05, ignore_classes=(0, 1))
+
+
 @dataclasses.dataclass
 class InstanceHeadConfig:
     """Dense masked 3-D U-Net instance head (reference: dgcnn-4.py:611-615, 1300-1392)."""
@@ -69,7 +76,10 @@ class Config:
     checkpoint_path: str | None = None
     log_dir: str = "log/gcanet"
     resultsSave: bool = False
-    data_path: str = "data/ABC/"      # relative to the working directory
+    val_skip: int = 5
+    train_skip: int = 1
+    data_path: str = "/opt/data/common/ABC/"   # the reference's option_new.py default
+    dataset: str = "ABC"
     train_dataset: str = "train_data.txt"
     test_dataset: str = "test_data.txt"
     batch_size: int = 3
@@ -186,3 +196,120 @@ def check_trainable(cfg: Config) -> None:
         "precision": cfg.precision != "fp32",
         "mesh_shape": str(cfg.mesh_shape) not in ("1", ""),
     }, "training option")
+
+
+def _add_args(parser: argparse.ArgumentParser) -> None:
+    """Register every option_new.py flag plus the JAX package's extras, with
+    the same names, types and defaults.  ``--vis``, ``--vis_dir``,
+    ``--optimize``, ``--gpu`` and ``--bn_decay_*`` are parsed and ignored,
+    as there."""
+    c = Config()
+    p = parser.add_argument
+    p("--num_primitives", type=int, default=c.num_primitives)
+    p("--mode", type=int, default=c.mode)
+    p("--ablation", type=bool, default=c.ablation)
+    p("--using_set_aggr", type=bool, default=c.using_set_aggr)
+    p("--model_dict", type=str, default=c.model_dict)
+    p("--checkpoint_path", default=c.checkpoint_path)
+    p("--log_dir", default=c.log_dir)
+    p("--resultsSave", type=bool, default=c.resultsSave)
+    p("--val_skip", type=int, default=c.val_skip)
+    p("--train_skip", type=int, default=c.train_skip)
+    p("--data_path", type=str, default=c.data_path)
+    p("--dataset", type=str, default=c.dataset)
+    p("--train_dataset", type=str, default=c.train_dataset)
+    p("--test_dataset", type=str, default=c.test_dataset)
+    p("--batch_size", type=int, default=c.batch_size)
+    p("--vis", action="store_true")
+    p("--vis_dir", type=str, default=None)
+    p("--eval", action="store_true")
+    p("--debug", action="store_true")
+    p("--MEAN_SHIFT_STEP", type=int, default=c.MEAN_SHIFT_STEP)
+    p("--max_epoch", type=int, default=c.max_epoch)
+    p("--learning_rate", type=float, default=c.learning_rate)
+    p("--optimizer", type=str, default=c.optimizer)
+    p("--weight_decay", type=float, default=c.weight_decay)
+    p("--momentum", type=float, default=c.momentum)
+    p("--bn_decay_step", type=int, default=20)
+    p("--bn_decay_rate", type=float, default=0.5)
+    p("--lr_decay_steps", default=c.lr_decay_steps)
+    p("--lr_decay_rates", default=c.lr_decay_rates)
+    p("--lr_decay_rate", type=float, default=c.lr_decay_rate)
+    p("--loss_class", type=str, default=c.loss_class)
+    p("--train_fold", type=int, default=c.train_fold)
+    p("--eval_interval", type=int, default=c.eval_interval)
+    p("--save_interval", type=int, default=c.save_interval)
+    p("--augment", type=int, default=c.augment)
+    p("--if_normal_noise", type=int, default=c.if_normal_noise)
+    p("--optimize", type=int, default=0)
+    p("--gpu", type=str, default="0")
+    p("--not_load_model", action="store_true")
+    p("--sigma", type=float, default=c.sigma)
+    p("--normal_sigma", type=float, default=c.normal_sigma)
+    p("--out_dim", type=int, default=c.out_dim)
+    p("--type_weight", type=float, default=c.type_weight)
+    p("--param_weight", type=float, default=c.param_weight)
+    p("--normal_weight", type=float, default=c.normal_weight)
+    p("--edge_knn", type=int, default=c.edge_knn)
+    p("--feat_ent_weight", type=float, default=c.feat_ent_weight)
+    p("--dis_ent_weight", type=float, default=c.dis_ent_weight)
+    p("--edge_ent_weight", type=float, default=c.edge_ent_weight)
+    p("--topK", type=int, default=c.topK)
+    p("--edge_topK", type=int, default=c.edge_topK)
+    p("--bandwidth", type=float, default=c.bandwidth)
+    p("--backbone", type=str, default=c.backbone)
+    # static-shape and implementation extras of the JAX package
+    p("--num_points", type=int, default=c.num_points)
+    p("--nn_nb", type=int, default=c.nn_nb)
+    p("--max_instances", type=int, default=c.max_instances)
+    p("--precision", type=str, default=c.precision)
+    p("--knn_impl", type=str, default=c.knn_impl)
+    p("--encoder_bf16", type=int, default=int(c.encoder_bf16))
+    p("--edge_backward", type=str, default=c.edge_backward)
+    p("--shared_graph", type=int, default=int(c.shared_graph))
+    p("--nn_nb_inner", type=int, default=c.nn_nb_inner)
+    p("--mesh_shape", type=str, default=c.mesh_shape)
+    p("--seed", type=int, default=c.seed)
+    p("--eval_min_npoint", type=int, default=c.eval_min_npoint)
+    p("--scene_bf16", type=int, default=int(c.scene_bf16))
+    p("--semantic_only", type=int, default=int(c.semantic_only))
+    p("--fixed_modules", type=str, default=c.fixed_modules)
+    p("--x4_split", type=int, default=int(c.x4_split))
+    p("--scene_soft_grouping", type=int, default=int(c.scene_soft_grouping),
+      help="scene family: 1 = soft per-class subsets; 0 = argmax partition")
+    p("--ignore_classes", type=str, default="",
+      help="scene family: comma-separated class ids excluded from grouping")
+    p("--max_proposals", type=int, default=c.instance_head.max_proposals,
+      help="train-time proposal cap (reference: 200)")
+    p("--strict_caps", type=int, default=0,
+      help="the reference's CUDA grouping buffer caps (3000 neighbours; "
+           "1000 fragments / 3000 absorbed points per primary)")
+
+
+def config_from_namespace(ns: argparse.Namespace) -> Config:
+    c = Config()
+    fields = {f.name for f in dataclasses.fields(Config)}
+    c = c.replace(**{k: v for k, v in vars(ns).items() if k in fields and v is not None})
+    mp = getattr(ns, "max_proposals", None)
+    if mp is not None and mp != c.instance_head.max_proposals:
+        c = c.replace(instance_head=dataclasses.replace(c.instance_head, max_proposals=mp))
+    if getattr(ns, "strict_caps", 0):
+        c = c.replace(grouping=dataclasses.replace(
+            c.grouping, neighbor_cap=3000, absorb_fragment_cap=1000, absorb_point_cap=3000))
+    from gcanet_tpu_torch.models.registry import is_scene_model
+
+    if is_scene_model(c.model_dict):
+        c = c.replace(grouping=scene_grouping_defaults(c.grouping))
+    ig = getattr(ns, "ignore_classes", "") or ""
+    if ig.strip():
+        c = c.replace(grouping=dataclasses.replace(
+            c.grouping, ignore_classes=tuple(int(x) for x in ig.split(",") if x.strip())))
+    return c.replace(scene_soft_grouping=bool(c.scene_soft_grouping))
+
+
+def build_option(argv: list[str] | None = None) -> Config:
+    """Parse ``argv`` (default ``sys.argv[1:]``) into a ``Config``, as
+    option_new.py's ``build_option``."""
+    parser = argparse.ArgumentParser()
+    _add_args(parser)
+    return config_from_namespace(parser.parse_args(argv))

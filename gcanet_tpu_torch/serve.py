@@ -16,31 +16,10 @@ import numpy as np
 import torch
 
 from gcanet_tpu_torch.config import Config
-from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
+from gcanet_tpu_torch.models.registry import build_model
 from gcanet_tpu_torch.train import instances as inst_utils
 from gcanet_tpu_torch.utils.from_jax import load_reference_checkpoint
-
-FLAGSHIP_MODELS = ("models.dgcnn-hais-concat-direct-4", "gcanet_tpu.models.primitive_net")
-
-
-def _fetch(tensors: List[torch.Tensor]) -> List[np.ndarray]:
-    """Copy several device tensors to the host in ONE transfer: their bytes
-    are packed into one buffer (each piece padded to 8 bytes) and split on
-    the host."""
-    pieces, metas = [], []
-    for t in tensors:
-        raw = t.contiguous().reshape(-1).view(torch.uint8)
-        pad = -raw.numel() % 8
-        pieces.append(torch.nn.functional.pad(raw, (0, pad)) if pad else raw)
-        metas.append((t.dtype, tuple(t.shape), raw.numel() + pad))
-    buf = torch.cat(pieces).cpu().numpy()
-    out, off = [], 0
-    for dtype, shape, nbytes in metas:
-        np_dtype = torch.empty((), dtype=dtype).numpy().dtype
-        count = int(np.prod(shape, dtype=np.int64))
-        out.append(np.frombuffer(buf, np_dtype, count, off).reshape(shape))
-        off += nbytes
-    return out
+from gcanet_tpu_torch.utils.transfer import fetch
 
 
 class Predictor:
@@ -59,9 +38,6 @@ class Predictor:
         if cluster_mode != "grouping":
             raise NotImplementedError(f"cluster_mode={cluster_mode!r} is not ported "
                                       "yet; only 'grouping' (see ROADMAP.md)")
-        if cfg.model_dict not in FLAGSHIP_MODELS:
-            raise NotImplementedError(f"model_dict={cfg.model_dict!r} is not ported "
-                                      "yet (see ROADMAP.md)")
         if str(cfg.mesh_shape) not in ("1", ""):
             raise NotImplementedError("data-parallel serving is not ported yet")
         self.device = torch.device("cuda" if device is None else device)
@@ -69,7 +45,7 @@ class Predictor:
             raise RuntimeError("Predictor runs on cuda by default and no CUDA device "
                                "is available; pass device='cpu' to run on the CPU")
         self.cfg = cfg
-        self.model = PrimitiveNet(cfg)
+        self.model = build_model(cfg)
         self.load_report = (load_reference_checkpoint(self.model, checkpoint)
                             if checkpoint is not None else None)
         self.model.to(self.device).eval()
@@ -99,7 +75,7 @@ class Predictor:
         dev = self._forward_fast(np.asarray(xyz)[None], np.asarray(normals)[None])
         if not return_embedding:
             dev = dev[:-1]
-        fetched = _fetch(dev)
+        fetched = fetch(dev)
         merged, keep, conf, npoint, covered, _, tpp, ppp, off = fetched[:9]
         preds = inst_utils.instances_from_merged(merged, keep, conf, npoint, covered)
         return {
@@ -119,7 +95,7 @@ class Predictor:
                              f"{np.shape(xyz)} — use predict() for one [N, 3] cloud")
         b, n = np.shape(xyz)[:2]
         (merged, keep, conf, npoint, covered, prop_batch, tpp, ppp,
-         off) = _fetch(self._forward_fast(xyz, normals)[:-1])
+         off) = fetch(self._forward_fast(xyz, normals)[:-1])
         merged = merged.reshape(b, n)
         covered = covered.reshape(b, n)
         off = off.reshape(b, n, 3)

@@ -1,10 +1,13 @@
-"""Test-time instance extraction (port of the serving half of
+"""Test-time instance extraction (port of the ABC half of
 ``gcanet_tpu/train/instances.py``).
 
 ``merged_labels_device`` runs on the model's device and leaves only the
 ``[N]`` merged labels and small ``[P, CI]`` tables to copy to the host;
-``instances_from_merged`` builds the instance list there.  RLE is
-bit-compatible with the reference codec (softgroup/util/rle.py:5-21).
+``instances_from_merged`` builds the instance list there.  The host pair
+``get_instances`` + ``merge_masks`` (dgcnn-4.py:1040-1120, :975-999) gives
+the same labels from the fetched model outputs, and is what the device path
+is held against.  RLE is bit-compatible with the reference codec
+(softgroup/util/rle.py:5-21).
 """
 
 from __future__ import annotations
@@ -33,6 +36,50 @@ def rle_decode(rle: Dict) -> np.ndarray:
     for start, length in zip(counts[::2], counts[1::2]):
         mask[start - 1:start - 1 + length] = 1
     return mask
+
+
+def get_instances(point_pid: np.ndarray,        # [CH, N]
+                  semantic_scores: np.ndarray,  # [N, C] logits
+                  cls_scores: np.ndarray,       # [P, C]
+                  iou_scores: np.ndarray,       # [P, C]
+                  mask_scores: np.ndarray,      # [CH, N, C]
+                  prop_valid: np.ndarray,       # [P]
+                  instance_classes: int,
+                  cls_score_thr: float = 0.45,
+                  mask_score_thr: float = -3.0,
+                  min_npoint: int = 150) -> List[Dict]:
+    """dgcnn-4.py:1040-1120 with the thresholds of :1050-1053: one RLE
+    mask per kept (class, proposal), class-major, proposal-minor."""
+    ch, n = point_pid.shape
+    p = cls_scores.shape[0]
+    if not prop_valid.any():
+        return []
+    e = np.exp(cls_scores - cls_scores.max(1, keepdims=True))
+    cls_soft = e / e.sum(1, keepdims=True)
+
+    instances: List[Dict] = []
+    for i in range(instance_classes):
+        score_pred = cls_soft[:, i] * np.clip(iou_scores[:, i], 0, 1)
+        mask_pred = np.zeros((p, n), np.int32)
+        for c in range(ch):
+            sel = (point_pid[c] >= 0) & (mask_scores[c, :, i] > mask_score_thr)
+            mask_pred[point_pid[c][sel], np.nonzero(sel)[0]] = 1
+        keep = prop_valid & (cls_soft[:, i] > cls_score_thr)
+        keep &= mask_pred.sum(1) >= min_npoint
+        for pp in np.nonzero(keep)[0]:
+            instances.append({
+                "label_id": i + 1,
+                "conf": float(score_pred[pp]),
+                "pred_mask": rle_encode(mask_pred[pp]),
+            })
+    return instances
+
+
+def merge_masks(instances: List[Dict]) -> np.ndarray:
+    """argmax over the decoded masks -> per-point instance id
+    (dgcnn-4.py:975-999); a point no mask covers lands on 0."""
+    masks = np.stack([rle_decode(inst["pred_mask"]) for inst in instances])
+    return masks.argmax(0).astype(np.int32)
 
 
 @torch.no_grad()

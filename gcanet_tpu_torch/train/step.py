@@ -4,7 +4,9 @@ Loss orchestration mirrors ``MyTrainer.process_batch`` (train_new.py:22-137):
 the 'f'/'r'/'p'/'n' characters of ``loss_class`` select the embedding,
 type + offset + instance, parameter and normal losses with the reference's
 weights (train_new.py:104-128).  ``train_step`` is forward in training mode,
-backward, one optimizer step; its metrics stay on the device.
+backward, one optimizer step; its metrics stay on the device.  ``eval_step``
+is the eval forward, the losses and the merged instance labels, all on the
+device.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from gcanet_tpu_torch.config import Config, check_trainable
 from gcanet_tpu_torch.losses import losses as L
 from gcanet_tpu_torch.models.primitive_net import ModelOutput, PrimitiveNet
+from gcanet_tpu_torch.train import instances as inst_utils
 
 
 def compute_losses(cfg: Config, out: ModelOutput, batch: Mapping[str, torch.Tensor]
@@ -86,10 +89,20 @@ def lr_for_epoch(cfg: Config, epoch: int) -> float:
 
 def batch_to_device(batch: Mapping[str, np.ndarray], device: torch.device | str
                     ) -> Dict[str, torch.Tensor]:
-    """A collated numpy batch as tensors on ``device`` (``index``, the
-    objects' names, stays behind)."""
-    return {k: torch.as_tensor(np.asarray(v), device=device)
-            for k, v in batch.items() if k != "index"}
+    """A collated numpy batch as tensors on ``device``; to a card through
+    pinned host memory, asynchronously.  ``index``, the objects' names,
+    passes through as it is."""
+    device = torch.device(device)
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in batch.items():
+        if k == "index":
+            out[k] = v
+            continue
+        t = torch.as_tensor(np.asarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=True)
+    return out
 
 
 def train_step(model: PrimitiveNet, optimizer: torch.optim.Optimizer,
@@ -109,3 +122,19 @@ def train_step(model: PrimitiveNet, optimizer: torch.optim.Optimizer,
     total.backward()
     optimizer.step()
     return {k: v.detach() for k, v in dict(loss_dict, total_loss=total).items()}
+
+
+@torch.no_grad()
+def eval_step(model: PrimitiveNet, batch: Mapping[str, torch.Tensor]
+              ) -> Tuple[ModelOutput, torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """The eval forward (``model.eval()``: batch norms on their running
+    statistics, set aggregation as ``cfg.using_set_aggr`` says), the losses,
+    and ``get_instances`` + ``merge_masks`` on the device.  Returns ``(out,
+    merged [B*N] int32, total, loss_dict)``, all on the model's device."""
+    model.eval()
+    out = model(batch["gt_pc"], batch["gt_normal"])
+    total, loss_dict = compute_losses(model.cfg, out, batch)
+    merged = inst_utils.merged_labels_device(
+        out.proposals.point_pid, out.instance.cls_scores, out.instance.iou_scores,
+        out.instance.mask_scores, out.proposals.valid, model.cfg.num_primitives)[0]
+    return out, merged, total, loss_dict

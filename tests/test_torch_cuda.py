@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, and a tiny
-train step against the CPU, on the card.
+train step and eval step against the CPU, on the card.
 
 Needs an NVIDIA GPU; skips without one.  Imports no JAX, so on a machine
 without it run it past the suite's conftest:
@@ -93,6 +93,31 @@ def test_train_step_card_equals_cpu(cuda, head_bf16):
     try:
         res = chip_smoke.train_step_card_vs_cpu(cfg, model.state_dict(),
                                                 synth_batch(cfg, 2, seed=0), r1, head_bf16)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert res["proposals"] > 0
+
+
+def test_eval_step_card_equals_cpu(cuda):
+    """One tiny eval step on the card and on the CPU from the same weights
+    and cloud, top-k selections and proposals replayed on the CPU
+    (``chip_smoke.eval_step_card_vs_cpu``: losses to phase 7's tolerances,
+    merged labels exactly)."""
+    import chip_smoke
+
+    cfg = Config(num_points=1024, nn_nb=12, nn_nb_inner=8, offset_knn=6, offset_keypoints=24,
+                 max_instances=16,
+                 grouping=GroupingConfig(radius=0.05, min_npoint=20,
+                                         class_numpoint_mean=(-1.0,) * 7,
+                                         similarity_threshold_inst=0.9),
+                 instance_head=InstanceHeadConfig(grid_size=8, max_proposals=24))
+    model = PrimitiveNet(cfg)
+    chip_smoke.push_weights(model)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        res = chip_smoke.eval_step_card_vs_cpu(cfg, model.state_dict(),
+                                               synth_batch(cfg, 1, seed=90003))
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     assert res["proposals"] > 0

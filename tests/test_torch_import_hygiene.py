@@ -14,6 +14,7 @@ SCRIPT = r"""
 import importlib, pkgutil, sys
 import gcanet_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gcanet_tpu_torch.__path__, "gcanet_tpu_torch.")]
+assert "gcanet_tpu_torch.train_new" in names     # its import must not run the CLI
 for name in names:
     importlib.import_module(name)
 import chip_smoke

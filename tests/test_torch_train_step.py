@@ -53,6 +53,7 @@ from gcanet_tpu.ops import voxelize as jvox
 from gcanet_tpu.train import step as jstep
 from gcanet_tpu_torch.config import (Config, GroupingConfig, InstanceHeadConfig,
                                      check_trainable)
+from gcanet_tpu_torch.data.abc_dataset import ABCDataset
 from gcanet_tpu_torch.data.synthetic import synth_batch
 from gcanet_tpu_torch.models.dgcnn import edge_conv
 from gcanet_tpu_torch.models.layers import GroupNorm, MaskedBatchNorm
@@ -439,7 +440,7 @@ def test_trainer_epoch_checkpoint_and_seeds(tmp_path):
         # the JAX trainer's synthetic seeds: (epoch * 1000 + i) * world + rank
         for i, b in enumerate(trainer._train_batches(2, 2)):
             want = jsynth_batch(_jcfg(), B, seed=2000 + i)
-            np.testing.assert_array_equal(b["gt_pc"].numpy(), want["gt_pc"])
+            np.testing.assert_array_equal(np.asarray(b["gt_pc"]), want["gt_pc"])
         history = trainer.train_one_epoch(0, num_batches=2)
         assert len(history) == 2
         assert all(isinstance(m["total_loss"], torch.Tensor) for m in history)
@@ -463,19 +464,20 @@ def test_trainer_epoch_checkpoint_and_seeds(tmp_path):
 
 
 def test_trainer_refuses_dataset_list_missing_card_and_eval(tmp_path):
-    (tmp_path / "train_data.txt").write_text("00000001\n")
-    cfg = _tcfg().replace(log_dir=str(tmp_path / "log"), data_path=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, device="cpu")
-    cfg = cfg.replace(data_path=str(tmp_path / "none"))
+    """Without a card the Trainer raises unless the CPU is asked for; a
+    dataset list is now read (``ABCDataset``).  ``train()`` and
+    ``test_one_epoch`` are held against the JAX trainer in
+    ``tests/test_torch_eval.py``."""
+    (tmp_path / "train_data.txt").write_text("00000001\n00000002\n")
+    (tmp_path / "test_data.txt").write_text("00000003\n")
+    cfg = _tcfg().replace(log_dir=str(tmp_path / "log"), data_path=str(tmp_path), val_skip=1)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             Trainer(cfg)
     trainer = Trainer(cfg, device="cpu")
     try:
-        with pytest.raises(NotImplementedError):
-            trainer.train()
-        with pytest.raises(NotImplementedError):
-            trainer.test_one_epoch(0)
+        assert isinstance(trainer.train_data, ABCDataset)
+        assert trainer.train_data.data_list == ["00000001", "00000002"]
+        assert trainer.test_data.data_list == ["00000003"] and not trainer.test_data.training
     finally:
         trainer.close()
