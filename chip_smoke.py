@@ -46,8 +46,24 @@ Phases (any failure ends the run with a non-zero exit):
      on each eval cloud.  ms per train step (CUDA events), ms per eval cloud
      (host clock around ``test_one_epoch``), the CC kernel's launches in
      each run, and eval's peak memory.
-Weights are random from a seed, with three pushes so that the path after
-grouping does real work (see ``push_weights``).
+ 12. the scene family, card against CPU (``SoftGroupNet`` through
+     ``ScenePredictor``, N=2048, B=2, scene grid 32, 20 classes, the
+     scannetv2 grouping recipe, TF32 off), with the U-Net in fp32 and in
+     bf16: semantic scores and offsets to a tolerance; the card's shifted
+     coordinates and logits through the CPU's ``build_soft_proposals`` give
+     the card's proposals exactly; on those proposals (replayed on the
+     CPU) the instance head to the bf16 tolerance and the kept instances
+     and masks exactly;
+ 13. scene serving at full width (N=8192, grid 64, 32 channels, 20
+     classes, 18 grouped, ``max_proposals`` 100): 3 ``predict``, 3
+     ``predict_batch`` at B=8 and ``predict_stream`` over the same 3
+     batches at depth 2, with the launch counts set to 0 just before and
+     read just after; the stream's dicts against the batches'; then the
+     sweep timed on one of the path's own N=8192 class masks;
+ 14. ``torch.profiler`` over two full-width scene ``predict_batch`` calls:
+     device busy share, top ops, the CC kernel's share.
+Weights are random from a seed, with pushes so that the path after
+grouping does real work (``push_weights``, ``push_scene_weights``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -69,13 +85,14 @@ import numpy as np
 import torch
 
 from gcanet_tpu_torch import train_new
-from gcanet_tpu_torch.config import Config, GroupingConfig, InstanceHeadConfig
-from gcanet_tpu_torch.data.synthetic import synth_batch, synth_clouds
+from gcanet_tpu_torch.config import (Config, GroupingConfig, InstanceHeadConfig,
+                                     scene_grouping_defaults)
+from gcanet_tpu_torch.data.synthetic import synth_batch, synth_clouds, synth_scene_batch
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
 from gcanet_tpu_torch.ops import cc
 from gcanet_tpu_torch.ops import grouping as grouping_ops
 from gcanet_tpu_torch.ops import voxelize as vox_ops
-from gcanet_tpu_torch.serve import Predictor
+from gcanet_tpu_torch.serve import Predictor, ScenePredictor
 from gcanet_tpu_torch.train import instances as inst_utils
 from gcanet_tpu_torch.train import step as step_lib
 from gcanet_tpu_torch.train import trainer as trainer_mod
@@ -142,6 +159,28 @@ def push_weights(model: torch.nn.Module) -> None:
         model.offset_pred_block.mlp_offset.weight.mul_(0.05)
         model.cls_linear.bias[0] += 10.0
         model.mask_linear[2].bias += 10.0
+
+
+def push_scene_weights(model: torch.nn.Module) -> None:
+    """The scene model's push: +4.0 and +3.5 on the semantic biases of
+    classes 2 and 3 (the first two grouped classes: soft subsets that
+    overlap, every blob a proposal in each), small live offsets, and the
+    instance head's class-0 and mask biases as in ``push_weights``."""
+    with torch.no_grad():
+        model.semantic_linear[2].bias[2] += 4.0
+        model.semantic_linear[2].bias[3] += 3.5
+        model.offset_linear[2].weight.mul_(0.05)
+        model.instance_head.cls_linear.bias[0] += 10.0
+        model.instance_head.mask_linear[2].bias += 10.0
+
+
+def scene_config(n: int) -> Config:
+    """The scene serving configuration at ``n`` points: ScanNet v2's 20
+    classes, the scannetv2 grouping recipe (classes 0/1 not grouped), the
+    mean table at the synthetic scenes' instance size ``n / 5``."""
+    return Config(model_dict="softgroup.model.softgroup", num_points=n, num_primitives=20,
+                  grouping=scene_grouping_defaults(GroupingConfig(),
+                                                   class_numpoint_mean=(n / 5.0,) * 20))
 
 
 def time_graph(fn, iters: int) -> float:
@@ -306,23 +345,25 @@ def _to(props, device):
 
 
 class ProposalReplay:
-    """Stands in for ``build_proposals`` while the card and then the CPU
-    run the same train step.  Grouping is a hard threshold on floats that
-    differ in the last bits between the devices, so the card's proposals
-    are recorded and handed to the CPU, which records whether its own
-    were equal; grouping itself is checked on identical inputs apart."""
+    """Stands in for ``grouping_ops.<name>`` (``build_proposals`` or
+    ``build_soft_proposals``) while the card and then the CPU run the same
+    step.  Grouping is a hard threshold on floats that differ in the last
+    bits between the devices, so the card's proposals are recorded and
+    handed to the CPU, which records whether its own were equal; grouping
+    itself is checked on identical inputs apart."""
 
-    def __init__(self):
-        self.real = grouping_ops.build_proposals
+    def __init__(self, name: str = "build_proposals"):
+        self.name = name
+        self.real = getattr(grouping_ops, name)
         self.recorded, self.own_equal = [], []
         self.replaying = False
 
     def __enter__(self):
-        grouping_ops.build_proposals = self
+        setattr(grouping_ops, self.name, self)
         return self
 
     def __exit__(self, *exc):
-        grouping_ops.build_proposals = self.real
+        setattr(grouping_ops, self.name, self.real)
 
     def __call__(self, shifted, *args, **kw):
         props = self.real(shifted, *args, **kw)
@@ -438,6 +479,34 @@ def phase_card_vs_cpu() -> None:
               f"flipped by the float differences (cloud 0): {flips} of {int(nbr_same.sum())}")
 
 
+def dict_difference(g: dict, w: dict) -> str | None:
+    """The first key where two prediction dicts differ, or None: arrays of
+    integers and instance lists (labels, npoint, RLE) exactly, floats at
+    ``CARD_VS_CPU_FLOAT``."""
+    if g.keys() != w.keys():
+        return "keys"
+    for key, value in w.items():
+        if isinstance(value, np.ndarray) and value.dtype.kind == "f":
+            same = np.allclose(g[key], value, **CARD_VS_CPU_FLOAT)
+        elif isinstance(value, np.ndarray):
+            same = np.array_equal(g[key], value)
+        elif key == "instances":
+            same = ([(i["label_id"], i["npoint"], i["pred_mask"]) for i in g[key]]
+                    == [(i["label_id"], i["npoint"], i["pred_mask"]) for i in value]
+                    and np.allclose([i["conf"] for i in g[key]], [i["conf"] for i in value],
+                                    **CARD_VS_CPU_FLOAT))
+        else:
+            same = g[key] == value
+        if not same:
+            return key
+    return None
+
+
+def same_dicts(got: list[dict], want: list[dict]) -> bool:
+    return len(got) == len(want) and all(dict_difference(g, w) is None
+                                         for g, w in zip(got, want))
+
+
 def phase_serving(card_name: str, max_err: float) -> list[dict]:
     cfg = Config()
     n, b, reps = cfg.num_points, 4, 3
@@ -461,6 +530,13 @@ def phase_serving(card_name: str, max_err: float) -> list[dict]:
     peak = torch.cuda.max_memory_allocated()
     clouds = reps + reps * b
 
+    # predict_stream over two batches: predict_batch's dicts, in order
+    t0 = time.perf_counter()
+    stream = list(pred.predict_stream([(xyz, nrm)] * 2, depth=2))
+    t_stream = time.perf_counter() - t0
+    check(len(stream) == 2 * b and same_dicts(stream[:b], batch)
+          and same_dicts(stream[b:], batch), "predict_stream differs from predict_batch")
+
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the main path")
     for r in singles + batch:
@@ -481,6 +557,8 @@ def phase_serving(card_name: str, max_err: float) -> list[dict]:
           f"peak memory {peak / 2**30:.2f} GiB")
     print(f"[serve] launches on the main path ({clouds} clouds): {launches}; "
           f"masked_min_sweep sweeps per cloud {launches['masked_min_sweep'] / clouds:.1f}")
+    print(f"[serve] predict_stream B={b}, 2 batches, depth 2: {2 * b / t_stream:.2f} clouds/s; "
+          f"its dicts equal predict_batch's")
 
     # the sweep on the main path's own input: cloud 0's gated mask
     shifted = (xt + out.pt_offsets.reshape(b, n, 3))[0]
@@ -761,7 +839,8 @@ def _profile(label: str, fn) -> None:
     for e in kernels_:
         if "masked_min_sweep" in e.key:
             print(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms device {e.count:6d}x  "
-                  f"{e.key[:60]} (hand-written)")
+                  f"{e.key[:60]} (hand-written; {e.self_device_time_total / busy_us:.1%} of "
+                  f"device time)")
 
 
 def phase_train_profile(log_dir: str) -> None:
@@ -959,6 +1038,212 @@ def phase_cli(smi: str) -> dict:
     return {"cli_train": train_run, "cli_eval": eval_run}
 
 
+def scene_card_vs_cpu(cfg: Config, state: dict, xyz: np.ndarray, feats: np.ndarray,
+                      scene_grid: int) -> dict:
+    """The scene model on the card and on the CPU (``ScenePredictor``'s
+    models) from the same weights and scenes, U-Net in ``cfg.scene_bf16``.
+    Semantic scores and offsets to ``CARD_VS_CPU_FLOAT`` (bf16 U-Net:
+    ``CARD_VS_CPU_BF16``); the card's shifted coordinates and logits through
+    the CPU's ``build_soft_proposals`` give the card's proposals exactly;
+    those proposals replayed on the CPU, the bf16 instance head to
+    ``CARD_VS_CPU_BF16`` and ``instance_masks_device``'s keep, npoint and
+    masks exactly, where no mask score is within 0.12 of -3.0 and no class
+    softmax within 1e-3 of 0.45 (checked).  Returns what the path did and
+    the worst errors; raises on a difference."""
+    models = {dev: ScenePredictor(cfg, checkpoint=state, device=dev, scene_grid=scene_grid).model
+              for dev in ("cuda", "cpu")}
+    inputs = {dev: (torch.as_tensor(xyz, device=dev), torch.as_tensor(feats, device=dev))
+              for dev in ("cuda", "cpu")}
+    with torch.inference_mode():
+        with ProposalReplay("build_soft_proposals") as props:
+            card = models["cuda"](*inputs["cuda"])
+            props.replaying = True
+            cpu = models["cpu"](*inputs["cpu"])
+        res = {"proposals": int(cpu.proposals.num), "cpu_own_proposals_equal": props.own_equal}
+        tol = CARD_VS_CPU_BF16 if cfg.scene_bf16 else CARD_VS_CPU_FLOAT
+        for name in ("semantic_scores", "pt_offsets"):
+            g, w = getattr(card, name).cpu(), getattr(cpu, name)
+            check(bool(torch.isfinite(g).all()), f"scene {name} not finite")
+            check(torch.allclose(g, w, **tol), f"scene {name} differs between card and CPU")
+            res[f"{name}_max_abs_err"] = float((g - w).abs().max())
+
+        b, n = xyz.shape[:2]
+        shifted = (inputs["cuda"][0] + card.pt_offsets.reshape(b, n, 3)).float().cpu()
+        logits = card.semantic_scores.reshape(b, n, -1).float().cpu()
+        again = grouping_ops.build_soft_proposals(shifted, logits, cfg.num_primitives,
+                                                  cfg.grouping, cfg.instance_head.max_proposals)
+        for field in again._fields:
+            check(torch.equal(getattr(card.proposals, field).cpu(), getattr(again, field)),
+                  f"scene proposals.{field}: the CPU on the card's inputs differs")
+
+        for name in ("cls_scores", "iou_scores", "mask_scores"):
+            g, w = getattr(card.instance, name).cpu(), getattr(cpu.instance, name)
+            check(torch.allclose(g, w, **CARD_VS_CPU_BF16), f"scene instance head {name}")
+            res[f"{name}_max_abs_err"] = float((g - w).abs().max())
+        ext = {}
+        for dev, out in (("cuda", card), ("cpu", cpu)):
+            ext[dev] = [t.cpu() for t in inst_utils.instance_masks_device(
+                out.proposals.point_pid, out.instance.cls_scores, out.instance.iou_scores,
+                out.instance.mask_scores, out.proposals.valid, cfg.num_primitives)]
+        valid = cpu.proposals.valid
+        cls_soft = torch.softmax(cpu.instance.cls_scores, dim=1)[valid]
+        entry = cpu.proposals.point_pid >= 0
+        res["cls_margin"] = float((cls_soft - 0.45).abs().min()) if valid.any() else 1.0
+        res["mask_margin"] = (float((cpu.instance.mask_scores[entry] + 3.0).abs().min())
+                              if entry.any() else 1.0)
+        check(res["cls_margin"] > 1e-3 and res["mask_margin"] > 0.12,
+              f"a score sits at an extraction threshold: {res}")
+        for i, name in ((0, "keep"), (2, "npoint"), (3, "masks")):
+            check(torch.equal(ext["cuda"][i], ext["cpu"][i]), f"scene {name} differs")
+        check(torch.allclose(ext["cuda"][1], ext["cpu"][1], **CARD_VS_CPU_BF16), "scene conf")
+        res["kept"] = int(ext["cpu"][0].sum())
+    return res
+
+
+def phase_scene_card_vs_cpu() -> None:
+    """Phase 12: the scene model, card against CPU, reduced size, U-Net in
+    fp32 and in bf16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grid = 32
+    cfg = scene_config(2048)
+    model = ScenePredictor(cfg, device="cpu", scene_grid=grid).model
+    push_scene_weights(model)
+    batch = synth_scene_batch(cfg, 2, seed=11)
+    for bf16 in (False, True):
+        res = scene_card_vs_cpu(cfg.replace(scene_bf16=bf16), model.state_dict(),
+                                batch["xyz"], batch["feats"], grid)
+        check(res["proposals"] > 0 and res["kept"] > 0, "the reduced scene run did no work")
+        print(f"[scene-vs-cpu] N={cfg.num_points} B=2 grid {grid}, U-Net "
+              f"{'bf16' if bf16 else 'fp32'}: "
+              + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                          for k, v in res.items()))
+    print(f"[scene-vs-cpu] tolerances: semantic scores and offsets {CARD_VS_CPU_FLOAT} (bf16 "
+          f"U-Net {CARD_VS_CPU_BF16}); instance head and conf {CARD_VS_CPU_BF16}; proposals on "
+          f"the card's inputs, keep, npoint and masks exact")
+
+
+def _scene_stream_check(stream: list[dict], batches: list[list[dict]]) -> str:
+    """The stream's dicts against ``predict_batch``'s on the same batches:
+    exact, or else (float atomics in the voxel means move the logits in the
+    last bits between calls) ``semantic_preds`` on >= 99.9% of points."""
+    want = [d for batch in batches for d in batch]
+    check(len(stream) == len(want), "predict_stream yielded another number of scenes")
+    if same_dicts(stream, want):
+        return "equal"
+    agree = np.mean([np.mean(g["semantic_preds"] == w["semantic_preds"])
+                     for g, w in zip(stream, want)])
+    check(agree >= 0.999, f"predict_stream: semantic_preds agree on {agree:.4%} of points")
+    differing = {}
+    for i, (g, w) in enumerate(zip(stream, want)):
+        key = dict_difference(g, w)
+        if key is not None:
+            differing[i] = key
+            if key == "instances":
+                gi, wi = g[key], w[key]
+                differing[i] += (f" ({len(gi)} vs {len(wi)} instances, npoint "
+                                 f"{[x['npoint'] for x in gi]} vs {[x['npoint'] for x in wi]})")
+    return (f"not exact in {len(differing)} of {len(want)} scenes {differing}; "
+            f"semantic_preds agree on {agree:.4%} of points")
+
+
+def phase_scene_serving(card_name: str, smi: str) -> dict:
+    """Phase 13: scene serving at full width.  Returns the CC kernel's
+    launches in the window and the sweep's times on a scene class mask."""
+    cfg = scene_config(8192)
+    n, b, reps, grid = cfg.num_points, 8, 3, 64
+    pred = ScenePredictor(cfg, device="cuda", scene_grid=grid)
+    push_scene_weights(pred.model)
+    batches = [synth_scene_batch(cfg, b, seed=20 + i) for i in range(reps)]
+    inputs = [(bt["xyz"], bt["feats"]) for bt in batches]
+    pred.predict(*(a[0] for a in inputs[0]))                   # warm-up
+    pred.predict_batch(*inputs[0])
+    torch.cuda.synchronize()
+
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    singles = [pred.predict(inputs[i][0][0], inputs[i][1][0]) for i in range(reps)]
+    t_single = (time.perf_counter() - t0) / reps
+    single_launches = _launches()["masked_min_sweep"]
+    t0 = time.perf_counter()
+    results = [pred.predict_batch(*inp) for inp in inputs]
+    t_batch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stream = list(pred.predict_stream(inputs, depth=2))
+    t_stream = time.perf_counter() - t0
+    launches = _launches()["masked_min_sweep"]
+    peak = torch.cuda.max_memory_allocated()
+    stream_check = _scene_stream_check(stream, results)
+
+    gc = cfg.num_primitives - len(cfg.grouping.ignore_classes)
+    scenes = reps + 2 * reps * b
+    cc_runs = gc * scenes
+    kept = [len(r["instances"]) for batch in results for r in batch]
+    for r in singles + [d for batch in results for d in batch]:
+        check(r["semantic_preds"].shape == (n,) and r["pt_offsets"].shape == (n, 3)
+              and r["instance_labels"].shape == (n,) and np.isfinite(r["pt_offsets"]).all(),
+              "scene output shapes")
+    check(launches > 0, "masked_min_sweep was not launched on the scene path")
+    with torch.inference_mode():
+        xt = torch.as_tensor(inputs[0][0], device="cuda")
+        out = pred.model(xt, torch.as_tensor(inputs[0][1], device="cuda"))
+    num = int(out.proposals.num)
+    check(all(k > 0 for k in kept) and num > 0,
+          f"a full-width scene kept no instance: proposals {num}, kept {kept}")
+    per_scene = np.bincount(out.proposals.batch[out.proposals.valid].cpu().numpy(), minlength=b)
+    print(f"[scene] N={n} B={b} grid {grid} channels {pred.model.channels} classes "
+          f"{cfg.num_primitives} ({gc} grouped) P={cfg.instance_head.max_proposals} "
+          f"bf16 {cfg.scene_bf16}: proposals per scene (batch 0) {per_scene.tolist()}, kept "
+          f"instances per scene {kept}")
+    print(f"[scene] predict: {t_single * 1e3:.1f} ms/scene; predict_batch B={b}: "
+          f"{reps * b / t_batch:.2f} scenes/s ({t_batch / reps * 1e3:.1f} ms/batch); "
+          f"predict_stream depth 2: {reps * b / t_stream:.2f} scenes/s; peak memory "
+          f"{peak / 2**30:.2f} GiB ({smi})")
+    print(f"[scene] masked_min_sweep launches {launches} over {scenes} scenes ({cc_runs} CC "
+          f"runs, {gc} per scene; {gc * b} per batch): {launches / cc_runs:.2f} sweeps per "
+          f"class per scene, {(launches - single_launches) / (2 * reps):.1f} sweeps (and "
+          f"host syncs) per batch of {b}; predict_stream against predict_batch: {stream_check}")
+
+    # the sweep on one of the path's own class masks: scene 0, first grouped class
+    shifted = (xt + out.pt_offsets.reshape(b, n, 3))[0].float()
+    ci = [c for c in range(cfg.num_primitives) if c not in cfg.grouping.ignore_classes][0]
+    member = torch.softmax(out.semantic_scores.reshape(b, n, -1)[0], -1)[:, ci] \
+        > cfg.grouping.score_thr
+    nbr = (grouping_ops.radius_neighbor_mask(shifted, cfg.grouping.radius)
+           & member[:, None] & member[None, :])
+    labels = torch.arange(n, dtype=torch.int32, device="cuda")
+    check(torch.equal(cc.masked_min_sweep(nbr, labels), cc.masked_min_sweep_plain(nbr, labels)),
+          "sweep on the scene class mask")
+    ms = time_graph(lambda: cc.masked_min_sweep(nbr, labels), 100)
+    plain_ms = time_graph(lambda: cc.masked_min_sweep_plain(nbr, labels), 10)
+    nbytes = n * n + 8 * n
+    bound_ms = nbytes / hbm_rate(card_name) * 1e3
+    print(f"[kernel] masked_min_sweep on the N={n} scene mask of class {ci} "
+          f"({int(member.sum())} members, {int(nbr.sum())} edges; {nbytes / 1e6:.1f} MB, "
+          f"{'above' if nbytes > 50e6 else 'within'} the 50 MB L2): {ms * 1e3:.2f} us/sweep, "
+          f"plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us, {bound_ms / ms:.1%} "
+          f"of the bound ({smi})")
+    return {"launches": launches, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "n": n}
+
+
+def phase_scene_profile() -> None:
+    """Phase 14: two full-width scene ``predict_batch`` calls (B=8) under
+    the profiler."""
+    cfg = scene_config(8192)
+    pred = ScenePredictor(cfg, device="cuda", scene_grid=64)
+    push_scene_weights(pred.model)
+    bt = synth_scene_batch(cfg, 8, seed=20)
+    pred.predict_batch(bt["xyz"], bt["feats"])                  # warm-up
+    torch.cuda.synchronize()
+
+    def two_batches():
+        for _ in range(2):
+            pred.predict_batch(bt["xyz"], bt["feats"])
+
+    _profile(f"2 x scene predict_batch(B=8, N={cfg.num_points}, grid 64)", two_batches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -977,10 +1262,14 @@ def main() -> int:
         phase_train_profile(log_dir)
     phase_eval_card_vs_cpu()
     cli_launches = phase_cli(smi)
+    phase_scene_card_vs_cpu()
+    scene = phase_scene_serving(card_name, smi)
+    phase_scene_profile()
     row = kernel_rows[0]
     row["launches_by_path"] = {"serve": row["launches"], "train": train_launches,
-                               **cli_launches}
-    row["launches"] += train_launches + sum(cli_launches.values())
+                               **cli_launches, "scene_serve": scene["launches"]}
+    row["launches"] += train_launches + sum(cli_launches.values()) + scene["launches"]
+    row["scene_mask"] = {k: scene[k] for k in ("n", "ms", "plain_ms", "bound_ms")}
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

@@ -45,11 +45,23 @@ class GroupingConfig:
     item_batch_mode: str = "map"
 
 
-def scene_grouping_defaults(base: GroupingConfig | None = None) -> GroupingConfig:
+def scene_grouping_defaults(base: GroupingConfig | None = None,
+                            class_numpoint_mean: Tuple[float, ...] | None = None
+                            ) -> GroupingConfig:
     """Scene-family grouping constants (the SoftGroup scannetv2 recipe):
-    ``score_thr`` 0.2, ``npoint_thr`` 0.05, classes 0/1 not grouped."""
+    ``score_thr`` 0.2, ``npoint_thr`` 0.05, classes 0/1 not grouped.
+
+    The keep rule is ``size >= npoint_thr * mean`` per class, so the mean
+    table must match the data's instance scale: ``class_numpoint_mean``
+    replaces ``base``'s (the synthetic scenes pass ``num_points / 5``).  A
+    ``-1`` mean degrades the rule to the raw 0.05, which keeps every
+    singleton cluster and fills ``max_proposals`` with them.
+    """
+    kw = {}
+    if class_numpoint_mean is not None:
+        kw["class_numpoint_mean"] = tuple(class_numpoint_mean)
     return dataclasses.replace(base if base is not None else GroupingConfig(),
-                               score_thr=0.2, npoint_thr=0.05, ignore_classes=(0, 1))
+                               score_thr=0.2, npoint_thr=0.05, ignore_classes=(0, 1), **kw)
 
 
 @dataclasses.dataclass
@@ -173,8 +185,15 @@ def _refuse(unported: dict[str, bool], what: str) -> None:
                                   f"(see ROADMAP.md)")
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise on config values whose model code paths are not ported yet."""
+def check_supported(cfg: Config, scene: bool = False) -> None:
+    """Raise on config values whose model code paths are not ported yet: the
+    flagship's knobs for ``PrimitiveNet``; for ``SoftGroupNet``
+    (``scene=True``) the scene knobs must each be 0 or 1."""
+    if scene:
+        for name in ("scene_bf16", "semantic_only", "x4_split", "scene_soft_grouping"):
+            if getattr(cfg, name) not in (0, 1):
+                raise ValueError(f"{name} must be 0 or 1, got {getattr(cfg, name)!r}")
+        return
     _refuse({
         "mode": cfg.mode != 5,
         "ablation": cfg.ablation,

@@ -1,8 +1,8 @@
-"""Synthetic ABC-like clouds (copy of ``synth_object`` and ``synth_batch``
-from ``gcanet_tpu/data/synthetic.py``): labelled primitive instances
-(planes, spheres, cylinders, cones) as point blobs on analytic surfaces,
-with normals.  The same seed gives the same cloud, and the same training
-batch, as the JAX package's functions.
+"""Synthetic data (copy of ``synth_object``, ``synth_batch``, ``synth_scene``
+and ``synth_scene_batch`` from ``gcanet_tpu/data/synthetic.py``): ABC-like
+clouds of labelled primitive instances (planes, spheres, cylinders, cones)
+with normals, and ScanNet-like scenes of gaussian-blob instances.  The same
+seed gives the same arrays as the JAX package's functions.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import numpy as np
 
 from gcanet_tpu_torch.config import Config
 from gcanet_tpu_torch.data.abc_dataset import collate
+from gcanet_tpu_torch.data.scene_dataset import collate_scene, instance_info
 
 
 def _unit(v):
@@ -132,3 +133,61 @@ def synth_batch(cfg: Config, batch_size: int, seed: int = 0,
     rng = np.random.RandomState(seed)
     return collate([synth_object(cfg, rng, inst_range)
                     for _ in range(batch_size)], cfg)
+
+
+# one distinct blob shape (per-axis sigma) per instance class, so that the
+# class is observable from the geometry
+_SCENE_SHAPES = np.array([
+    [0.020, 0.020, 0.020],        # tight sphere
+    [0.060, 0.060, 0.060],        # large sphere
+    [0.050, 0.050, 0.008],        # flat pancake
+    [0.080, 0.012, 0.012],        # elongated rod
+    [0.035, 0.035, 0.035],        # medium sphere
+    [0.012, 0.050, 0.050],        # upright disc
+    [0.025, 0.070, 0.025],        # tall ellipsoid
+    [0.055, 0.030, 0.010],        # tilted slab
+], np.float32)
+
+
+def synth_scene(cfg: Config, rng: np.random.RandomState, n_instances: int = 5,
+                cls_offset: int = 2) -> Dict[str, np.ndarray]:
+    """One ScanNet-like scene of ``cfg.num_points`` points: gaussian-blob
+    instances in the unit cube, ``semantic = instance class + cls_offset``
+    (the scannetv2 convention), random 3-channel colours as ``feats``."""
+    n = cfg.num_points
+    n_classes = max(cfg.num_primitives - cls_offset, 1)
+    centers = rng.rand(n_instances, 3) * 0.8 + 0.1
+    per = n // n_instances
+    xyz, inst, sem = [], [], []
+    for j, c in enumerate(centers):
+        cnt = per if j < n_instances - 1 else n - per * (n_instances - 1)
+        k = int(rng.randint(n_classes))
+        sigma = _SCENE_SHAPES[k % len(_SCENE_SHAPES)]
+        xyz.append(np.clip(c + rng.randn(cnt, 3) * sigma, 0.0, 1.0))
+        inst.append(np.full(cnt, j, np.int32))
+        sem.append(np.full(cnt, k + cls_offset, np.int32))
+    xyz = np.concatenate(xyz).astype(np.float32)
+    inst = np.concatenate(inst)
+    sem = np.concatenate(sem)
+    order = rng.permutation(n)
+    xyz, inst, sem = xyz[order], inst[order], sem[order]
+    num, pointnum, inst_cls, offsets = instance_info(xyz, inst, sem, cfg.max_instances,
+                                                     cls_offset)
+    return {
+        "index": "synthetic",
+        "xyz": xyz,
+        "coords_float": xyz,
+        "feats": rng.rand(n, 3).astype(np.float32),
+        "semantic": sem.astype(np.int32),
+        "instance": inst.astype(np.int32),
+        "pt_offset_label": offsets.astype(np.float32),
+        "inst_num": num,
+        "inst_pointnum": pointnum,
+        "inst_cls": inst_cls,
+    }
+
+
+def synth_scene_batch(cfg: Config, batch_size: int, seed: int = 0) -> Dict[str, np.ndarray]:
+    """``batch_size`` scenes from one seed, collated (``collate_scene``)."""
+    rng = np.random.RandomState(seed)
+    return collate_scene([synth_scene(cfg, rng) for _ in range(batch_size)], cfg)

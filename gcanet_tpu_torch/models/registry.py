@@ -2,8 +2,8 @@
 names to model constructors, with the JAX package's name table, so
 ``is_scene_model`` answers as there.
 
-Only the flagship is ported; every other known name raises
-``NotImplementedError``, and an unknown name raises ``KeyError``.
+The flagship and the SoftGroup scene family are ported; every other known
+name raises ``NotImplementedError``, and an unknown name raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -28,7 +28,13 @@ def _unported(what: str) -> Callable:
 
 _variant2 = _unported("PrimitiveNet with the dual-attention offset module")
 _sppnet = _unported("the SPP-Net baseline")
-_softgroup_scene = _unported("the SoftGroup scene family")
+
+
+def _softgroup_scene(cfg: Config):
+    from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
+
+    return SoftGroupNet(cfg, compute_bf16=bool(cfg.scene_bf16),
+                        semantic_only=bool(cfg.semantic_only))
 
 
 def is_scene_model(model_dict: str) -> bool:

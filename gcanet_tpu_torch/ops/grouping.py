@@ -1,13 +1,19 @@
-"""Instance grouping: gated ball query + connected components + HAIS
-(port of ``gcanet_tpu/ops/grouping.py``, the argmax-partition path).
+"""Instance grouping (port of ``gcanet_tpu/ops/grouping.py``).
 
-One boolean ``[N, N]`` neighbour matrix per batch item covers every class:
-the radius test on the shifted coordinates, class equality, and the
-embedding-affinity gate folded into a distance threshold.  Its connected
-components come from ``ops/cc.py`` (the hand-written CUDA sweep on a card).
-Proposals are fixed-shape per-point assignment channels ordered by
-(batch item, class, kept-before-primary, root index), truncated to
-``max_proposals``; channel 1 carries set-aggregation absorptions.
+``build_proposals``, the flagship's argmax partition: one boolean ``[N, N]``
+neighbour matrix per batch item covers every class (the radius test on the
+shifted coordinates, class equality, and the embedding-affinity gate folded
+into a distance threshold).  Proposals are fixed-shape per-point assignment
+channels ordered by (batch item, class, kept-before-primary, root index),
+truncated to ``max_proposals``; channel 1 carries set-aggregation
+absorptions.
+
+``build_soft_proposals``, the scene family's soft per-class grouping: one
+connected-components run per grouped class per batch item over the radius
+graph restricted to that class's soft subset, one channel per grouped class.
+
+Connected components come from ``ops/cc.py`` (the hand-written CUDA sweep on
+a card).
 """
 
 from __future__ import annotations
@@ -28,8 +34,9 @@ _BIG_I = 2**30
 class Proposals(NamedTuple):
     """Fixed-shape proposal set over a flattened batch of B*N points.
 
-    point_pid: [2, B*N] int32 (-1 = none); valid: [P] bool; cls, batch:
-    [P] int32 (-1 if unused); size: [P] int32; num: scalar int32.
+    point_pid: [CH, B*N] int32 (-1 = none; CH = 2 for ``build_proposals``,
+    one per grouped class for ``build_soft_proposals``); valid: [P] bool;
+    cls, batch: [P] int32 (-1 if unused); size: [P] int32; num: scalar int32.
     """
 
     point_pid: torch.Tensor
@@ -209,3 +216,114 @@ def build_proposals(shifted: torch.Tensor,      # [B, N, 3]
 
     return Proposals(point_pid=torch.stack([pid_a, pid_b]), valid=top_valid,
                      cls=prop_cls, batch=prop_batch, size=prop_size, num=num)
+
+
+def radius_neighbor_mask(coords: torch.Tensor, radius: float,
+                         batch_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain radius graph over ``coords [N, 3]`` (no self edges), optionally
+    within equal ``batch_ids`` only."""
+    n = coords.shape[0]
+    nbr = pairwise_sqdist(coords) < radius * radius
+    nbr &= ~torch.eye(n, dtype=torch.bool, device=coords.device)
+    if batch_ids is not None:
+        nbr &= batch_ids[:, None] == batch_ids[None, :]
+    return nbr
+
+
+@torch.no_grad()
+def build_soft_proposals(shifted: torch.Tensor,          # [B, N, 3]
+                         semantic_logits: torch.Tensor,  # [B, N, C]
+                         num_classes: int,
+                         cfg: GroupingConfig,
+                         max_proposals: int) -> Proposals:
+    """Soft per-class grouping (SoftGroup, softgroup/model/softgroup.py:412-481).
+
+    For each class not in ``cfg.ignore_classes`` the clustered subset is
+    ``softmax(logits)[:, c] > score_thr``, so one point may join several
+    classes' clusterings.  A class is skipped when its subset has fewer than
+    ``min_npoint`` points across the whole batch.  Within each batch item,
+    connected components of the radius graph on the subset; a component is
+    kept when its size reaches ``npoint_thr * mean[c]`` (plain
+    ``npoint_thr`` where the mean is -1).  Proposals are ordered class-major,
+    then by the component's global minimum point index, and truncated to
+    ``max_proposals``.  ``point_pid`` has one channel per grouped class.
+    """
+    b, n, c_all = shifted.shape[0], shifted.shape[1], semantic_logits.shape[-1]
+    dev = shifted.device
+    if c_all != num_classes:
+        raise ValueError(f"{c_all} logit channels for {num_classes} classes")
+    n_total = b * n
+    grouped = tuple(ci for ci in range(num_classes) if ci not in tuple(cfg.ignore_classes))
+    gc = len(grouped)
+    if gc < 1:
+        raise ValueError("every class is ignored: nothing to group")
+    if gc * n_total + n_total >= 2**31:
+        raise ValueError(f"soft-proposal rank overflows int32 at B={b}, N={n}, C={gc}")
+
+    grouped_t = torch.tensor(grouped, dtype=torch.long, device=dev)
+    member = torch.softmax(semantic_logits, dim=-1)[..., grouped_t] > cfg.score_thr
+    class_ok = member.sum(dim=(0, 1)) >= cfg.min_npoint                 # [gc]
+
+    mean_all = torch.full((num_classes,), -1.0, device=dev)
+    k = min(num_classes, len(cfg.class_numpoint_mean))
+    mean_all[:k] = torch.tensor(cfg.class_numpoint_mean[:k], dtype=torch.float32,
+                                device=dev)
+    mean_g = mean_all[grouped_t]
+    thr_g = torch.where(mean_g < 0, cfg.npoint_thr, cfg.npoint_thr * mean_g)
+
+    labels, csize = [], []
+    for i in range(b):
+        geo = radius_neighbor_mask(shifted[i], cfg.radius)
+        for ci in range(gc):
+            m = member[i, :, ci]
+            lab = connected_components(geo & m[:, None] & m[None, :], cfg.cc_max_iters)
+            size = torch.zeros(n, dtype=torch.int32, device=dev)
+            size.index_add_(0, lab.long(), m.to(torch.int32))
+            labels.append(lab)
+            csize.append(size[lab.long()])
+        del geo
+    labels = torch.stack(labels).reshape(b, gc, n)     # per-class root: min member index
+    csize = torch.stack(csize).reshape(b, gc, n)       # member count of that component
+
+    memb = member.permute(0, 2, 1)                                      # [B, gc, N]
+    keep = memb & (csize.to(torch.float32) >= thr_g[None, :, None]) & class_ok[None, :, None]
+
+    # ---- global proposal ordering: (class, global min point index) ----
+    ar_n = torch.arange(n, dtype=torch.int32, device=dev)
+    groot = labels + (torch.arange(b, dtype=torch.int32, device=dev) * n)[:, None, None]
+    is_root = memb & (labels == ar_n[None, None, :])
+
+    def chan_flat(x):                  # [B, gc, N] -> [gc, B*N], channel ci = class grouped[ci]
+        return x.transpose(0, 1).reshape(gc, n_total)
+
+    f_keep = chan_flat(keep)
+    f_root = chan_flat(is_root & keep)
+    f_groot = chan_flat(groot).long()
+    f_size = chan_flat(csize)
+
+    ci_idx = torch.arange(gc, dtype=torch.long, device=dev)[:, None]
+    key = ci_idx * n_total + f_groot                                    # [gc, B*N]
+    rank = torch.where(f_root, key, _BIG_I).reshape(-1)
+    p = max_proposals
+    pad = max(0, p - gc * n_total)
+    rank_full = torch.cat([rank, torch.full((pad,), _BIG_I, dtype=torch.long, device=dev)])
+    order = torch.argsort(rank_full, stable=True)
+    top_valid = rank_full[order[:p]] < _BIG_I
+    top_entry = torch.clamp(order[:p], max=gc * n_total - 1)
+
+    # (channel, groot) -> pid table with an overflow slot for unused pids
+    slot = (top_entry // n_total) * n_total + f_groot.reshape(-1)[top_entry]
+    pid_tbl = torch.full((gc * n_total + 1,), -1, dtype=torch.int32, device=dev)
+    ar_p = torch.arange(p, dtype=torch.int32, device=dev)
+    pid_tbl[torch.where(top_valid, slot, gc * n_total)] = torch.where(top_valid, ar_p, -1)
+    point_pid = torch.where(f_keep, pid_tbl[key], -1)
+
+    f_cls = grouped_t.to(torch.int32)[:, None].expand(gc, n_total).reshape(-1)
+    f_batch = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(n)
+    f_batch = f_batch[None, :].expand(gc, n_total).reshape(-1)
+    return Proposals(point_pid=point_pid,
+                     valid=top_valid,
+                     cls=torch.where(top_valid, f_cls[top_entry], -1),
+                     batch=torch.where(top_valid, f_batch[top_entry], -1),
+                     size=torch.where(top_valid, f_size.reshape(-1)[top_entry], 0),
+                     num=top_valid.sum().to(torch.int32))

@@ -1,25 +1,52 @@
-"""Inference/serving API of the port (``gcanet_tpu/serve.py::Predictor``,
-fast path).
+"""Inference/serving API of the port (``gcanet_tpu/serve.py``: ``Predictor``'s
+fast path and ``ScenePredictor``).
 
-``Predictor`` loads weights once, then ``predict`` / ``predict_batch`` run the
-flagship model and the instance extraction on the device and copy the
-results to the host in one transfer per call.  It runs on ``cuda`` unless the
-caller passes ``device="cpu"``; it never moves to the CPU on its own.
+Each predictor loads weights once, then ``predict`` / ``predict_batch`` /
+``predict_stream`` run the model and the instance extraction on the device
+and copy the results to the host in one transfer per batch.  It runs on
+``cuda`` unless the caller passes ``device="cpu"``; it never moves to the
+CPU on its own.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from pathlib import Path
-from typing import Dict, List, Mapping
+from typing import Dict, Iterable, Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from gcanet_tpu_torch.config import Config
 from gcanet_tpu_torch.models.registry import build_model
+from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
 from gcanet_tpu_torch.train import instances as inst_utils
 from gcanet_tpu_torch.utils.from_jax import load_reference_checkpoint
 from gcanet_tpu_torch.utils.transfer import fetch
+
+
+def _device(cfg: Config, device: str | torch.device | None, what: str) -> torch.device:
+    """The serving device; refuses data-parallel configs."""
+    if str(cfg.mesh_shape) not in ("1", ""):
+        raise NotImplementedError("data-parallel serving is not ported yet (see ROADMAP.md)")
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what} runs on cuda by default and no CUDA device is "
+                           f"available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def _stream(forward, finalize, batches: Iterable[Tuple[np.ndarray, np.ndarray]],
+            depth: int) -> Iterator[Dict]:
+    """Dispatch up to ``depth`` batches ahead of the oldest one's copy to
+    the host and host work, yielding per-item dicts in order."""
+    pending = deque()
+    for a, b in batches:
+        pending.append((forward(a, b), *np.shape(a)[:2]))
+        if len(pending) > depth:
+            yield from finalize(*pending.popleft())
+    while pending:
+        yield from finalize(*pending.popleft())
 
 
 class Predictor:
@@ -38,12 +65,7 @@ class Predictor:
         if cluster_mode != "grouping":
             raise NotImplementedError(f"cluster_mode={cluster_mode!r} is not ported "
                                       "yet; only 'grouping' (see ROADMAP.md)")
-        if str(cfg.mesh_shape) not in ("1", ""):
-            raise NotImplementedError("data-parallel serving is not ported yet")
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Predictor runs on cuda by default and no CUDA device "
-                               "is available; pass device='cpu' to run on the CPU")
+        self.device = _device(cfg, device, "Predictor")
         self.cfg = cfg
         self.model = build_model(cfg)
         self.load_report = (load_reference_checkpoint(self.model, checkpoint)
@@ -53,8 +75,8 @@ class Predictor:
     @torch.inference_mode()
     def _forward_fast(self, xyz: np.ndarray, normals: np.ndarray) -> List[torch.Tensor]:
         """Forward + on-device instance extraction for a ``[B, N, 3]`` batch."""
-        xyz_t = torch.as_tensor(np.asarray(xyz, np.float32), device=self.device)
-        nrm_t = torch.as_tensor(np.asarray(normals, np.float32), device=self.device)
+        xyz_t = torch.as_tensor(np.ascontiguousarray(xyz, np.float32), device=self.device)
+        nrm_t = torch.as_tensor(np.ascontiguousarray(normals, np.float32), device=self.device)
         out = self.model(xyz_t, nrm_t)
         merged, keep, conf, npoint, covered = inst_utils.merged_labels_device(
             out.proposals.point_pid, out.instance.cls_scores,
@@ -93,9 +115,12 @@ class Predictor:
         if np.ndim(xyz) != 3:
             raise ValueError(f"predict_batch expects xyz [B, N, 3]; got shape "
                              f"{np.shape(xyz)} — use predict() for one [N, 3] cloud")
-        b, n = np.shape(xyz)[:2]
+        return self._finalize_batch(self._forward_fast(xyz, normals), *np.shape(xyz)[:2])
+
+    def _finalize_batch(self, dev: List[torch.Tensor], b: int, n: int) -> List[Dict]:
+        """One copy of a dispatched batch to the host, then per-cloud dicts."""
         (merged, keep, conf, npoint, covered, prop_batch, tpp, ppp,
-         off) = fetch(self._forward_fast(xyz, normals)[:-1])
+         off) = fetch(dev[:-1])                     # the embedding is not copied
         merged = merged.reshape(b, n)
         covered = covered.reshape(b, n)
         off = off.reshape(b, n, 3)
@@ -117,9 +142,99 @@ class Predictor:
             })
         return results
 
-    def predict_stream(self, batches, depth: int = 2):
-        raise NotImplementedError("predict_stream is not ported yet (see ROADMAP.md)")
+    def predict_stream(self, batches: Iterable[Tuple[np.ndarray, np.ndarray]],
+                       depth: int = 2) -> Iterator[Dict]:
+        """Iterate ``(xyz [B, N, 3], normals)`` batches and yield the
+        per-cloud dicts of ``predict_batch`` in order; up to ``depth``
+        batches are run ahead of the oldest one's copy to the host."""
+        return _stream(self._forward_fast, self._finalize_batch, batches, depth)
 
     def predict_type_sharded(self, xyz: np.ndarray, normals: np.ndarray):
         raise NotImplementedError("predict_type_sharded is not ported yet "
                                   "(see ROADMAP.md)")
+
+
+class ScenePredictor:
+    """SoftGroup scene-family serving (``gcanet_tpu/serve.py::ScenePredictor``):
+    per-scene semantic labels, offsets and scored, possibly overlapping
+    instance masks.
+
+    ``checkpoint``: a state_dict of the port's ``SoftGroupNet`` or a
+    ``torch.save`` path holding one (``{"model_state_dict": ...}`` too);
+    ``None`` keeps random weights seeded with ``cfg.seed``.  ``cls_offset``
+    maps instance-class columns to the dataset's semantic ids (scannetv2:
+    2, s3dis: 0, stpls3d: 1, kitti: 11).  ``device``: default ``cuda``;
+    raises when no card is present unless ``device="cpu"`` is asked for.
+    """
+
+    def __init__(self, cfg: Config,
+                 checkpoint: str | Path | Mapping[str, torch.Tensor] | None = None,
+                 device: str | torch.device | None = None,
+                 cls_offset: int = 2, scene_grid: int = 64):
+        self.device = _device(cfg, device, "ScenePredictor")
+        self.cfg = cfg
+        self.cls_offset = cls_offset
+        self.model = SoftGroupNet(cfg, scene_grid=scene_grid, compute_bf16=bool(cfg.scene_bf16))
+        self.load_report = (load_reference_checkpoint(self.model, checkpoint, family="scene")
+                            if checkpoint is not None else None)
+        self.model.to(self.device).eval()
+
+    @torch.inference_mode()
+    def _forward_fast(self, xyz: np.ndarray, feats: np.ndarray) -> List[torch.Tensor]:
+        """Forward, the unmerged instance masks (bit-packed) and the
+        semantic argmax on the device for a ``[B, N, 3]`` batch."""
+        xyz_t, feats_t = (torch.as_tensor(np.ascontiguousarray(a, np.float32), device=self.device)
+                          for a in (xyz, feats))
+        out = self.model(xyz_t, feats_t)
+        keep, conf, npoint, masks = inst_utils.instance_masks_device(
+            out.proposals.point_pid, out.instance.cls_scores, out.instance.iou_scores,
+            out.instance.mask_scores, out.proposals.valid, self.cfg.num_primitives)
+        return [keep, conf, npoint, inst_utils.pack_mask_bits(masks), out.proposals.batch,
+                out.semantic_scores.argmax(dim=-1).to(torch.int32), out.pt_offsets]
+
+    def _finalize_batch(self, dev: List[torch.Tensor], b: int, n: int) -> List[Dict]:
+        """One copy of a dispatched batch to the host, then per-scene dicts:
+        the kept instances of the scene without the background column (class
+        C-1), and per-point labels where the higher-confidence instance wins
+        a point two masks share (0 = none)."""
+        keep, conf, npoint, mask_bits, prop_batch, sem_pred, off = fetch(dev)
+        masks = inst_utils.unpack_mask_bits(mask_bits, b * n)
+        sem_pred = sem_pred.reshape(b, n)
+        off = off.reshape(b, n, 3)
+        bg_label = (self.cfg.num_primitives - 1) + self.cls_offset
+        results = []
+        for bi in range(b):
+            preds = inst_utils.instances_from_masks(
+                keep, conf, npoint, masks[:, bi * n:(bi + 1) * n, :],
+                prop_mask=(prop_batch == bi), label_offset=self.cls_offset)
+            preds = [p for p in preds if p["label_id"] < bg_label]
+            labels = np.zeros(n, np.int32)
+            for rank1, p in sorted(enumerate(preds, start=1), key=lambda t: t[1]["conf"]):
+                labels[inst_utils.rle_decode(p["pred_mask"]).astype(bool)] = rank1
+            results.append({
+                "semantic_preds": sem_pred[bi],
+                "pt_offsets": off[bi],
+                "instances": preds,
+                "instance_labels": labels,
+            })
+        return results
+
+    def predict(self, xyz: np.ndarray, feats: np.ndarray) -> Dict:
+        """One scene: ``xyz [N, 3]`` in the unit cube, ``feats [N, 3]``
+        colours."""
+        xyz = np.asarray(xyz)
+        return self._finalize_batch(self._forward_fast(xyz[None], np.asarray(feats)[None]),
+                                    1, xyz.shape[0])[0]
+
+    def predict_batch(self, xyz: np.ndarray, feats: np.ndarray) -> List[Dict]:
+        """``xyz [B, N, 3]``, ``feats [B, N, 3]`` -> one dict per scene."""
+        if np.ndim(xyz) != 3:
+            raise ValueError(f"predict_batch expects xyz [B, N, 3]; got {np.shape(xyz)}")
+        return self._finalize_batch(self._forward_fast(xyz, feats), *np.shape(xyz)[:2])
+
+    def predict_stream(self, batches: Iterable[Tuple[np.ndarray, np.ndarray]],
+                       depth: int = 2) -> Iterator[Dict]:
+        """``predict_batch`` over ``(xyz, feats)`` batches, yielding the
+        per-scene dicts in order, up to ``depth`` batches run ahead of the
+        oldest one's copy to the host."""
+        return _stream(self._forward_fast, self._finalize_batch, batches, depth)

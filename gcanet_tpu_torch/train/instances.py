@@ -1,13 +1,18 @@
-"""Test-time instance extraction (port of the ABC half of
-``gcanet_tpu/train/instances.py``).
+"""Test-time instance extraction (port of ``gcanet_tpu/train/instances.py``).
 
-``merged_labels_device`` runs on the model's device and leaves only the
-``[N]`` merged labels and small ``[P, CI]`` tables to copy to the host;
+Flagship: ``merged_labels_device`` runs on the model's device and leaves only
+the ``[N]`` merged labels and small ``[P, CI]`` tables to copy to the host;
 ``instances_from_merged`` builds the instance list there.  The host pair
 ``get_instances`` + ``merge_masks`` (dgcnn-4.py:1040-1120, :975-999) gives
 the same labels from the fetched model outputs, and is what the device path
-is held against.  RLE is bit-compatible with the reference codec
-(softgroup/util/rle.py:5-21).
+is held against.
+
+Scene family: ``instance_masks_device`` keeps every kept (proposal, class)
+mask on its own, overlapping (softgroup.py:537-604 never merges them);
+``pack_mask_bits`` packs them eight points to a byte for the copy to the
+host, ``unpack_mask_bits`` and ``instances_from_masks`` build the list there.
+
+RLE is bit-compatible with the reference codec (softgroup/util/rle.py:5-21).
 """
 
 from __future__ import annotations
@@ -169,5 +174,91 @@ def instances_from_merged(merged: np.ndarray,      # [N] ranks (0 = also bg)
                 "npoint": int(npoint[pp, i]),
                 "pred_mask" if encode_rle else "mask":
                     rle_encode(mask) if encode_rle else mask,
+            })
+    return preds
+
+
+@torch.no_grad()
+def instance_masks_device(point_pid: torch.Tensor,     # [CH, N] int32
+                          cls_scores: torch.Tensor,    # [P, C] logits
+                          iou_scores: torch.Tensor,    # [P, C]
+                          mask_scores: torch.Tensor,   # [CH, N, C]
+                          prop_valid: torch.Tensor,    # [P] bool
+                          instance_classes: int,
+                          cls_score_thr: float = 0.45,
+                          mask_score_thr: float = -3.0,
+                          min_npoint: int = 150):
+    """``get_instances`` without merging, on the device.
+
+    Returns ``(keep [P, CI] bool, conf [P, CI] f32, npoint [P, CI] int32,
+    masks [P, N, CI] bool)``; ``masks[p, :, i]`` is the union over channels
+    of the entries with pid ``p`` whose class-``i`` mask score passes.
+    """
+    ch, n = point_pid.shape
+    p = cls_scores.shape[0]
+    ci = instance_classes
+    dev = point_pid.device
+    cls_soft = torch.softmax(cls_scores, dim=1)[:, :ci]             # [P, CI]
+
+    passes = (point_pid >= 0)[..., None] & (mask_scores[..., :ci] > mask_score_thr)
+    pid_safe = torch.where(point_pid >= 0, point_pid, p).long()     # [CH, N]
+    ids = pid_safe * n + torch.arange(n, device=dev)[None, :]        # [CH, N]
+    # a max over each (proposal, point) segment of the 0/1 payload, from 0:
+    # an empty segment stays 0 (a max with an int32-min identity would read
+    # as True after a bool cast)
+    masks = torch.zeros(((p + 1) * n, ci), dtype=torch.int32, device=dev)
+    masks.scatter_reduce_(0, ids.reshape(-1, 1).expand(ch * n, ci),
+                          passes.reshape(ch * n, ci).to(torch.int32), "amax")
+    masks = (masks[: p * n] > 0).reshape(p, n, ci)
+
+    npoint = masks.sum(dim=1, dtype=torch.int32)                    # [P, CI]
+    keep = prop_valid[:, None] & (cls_soft > cls_score_thr) & (npoint >= min_npoint)
+    conf = cls_soft * torch.clamp(iou_scores[:, :ci], 0, 1)
+    return keep, conf, npoint, masks
+
+
+def pack_mask_bits(masks: torch.Tensor) -> torch.Tensor:
+    """``[P, N, CI]`` bool -> ``[P, CI, ceil(N/8)]`` uint8, point ``8k + j``
+    in bit ``j`` of byte ``k`` (little-endian bit order, so
+    ``np.unpackbits(..., bitorder="little")`` inverts it)."""
+    p, n, ci = masks.shape
+    n8 = -(-n // 8) * 8
+    m = masks.permute(0, 2, 1).to(torch.uint8)                     # [P, CI, N]
+    if n8 != n:
+        m = torch.nn.functional.pad(m, (0, n8 - n))
+    m = m.reshape(p, ci, n8 // 8, 8)
+    out = m[..., 0].clone()
+    for j in range(1, 8):
+        out |= m[..., j] << j
+    return out
+
+
+def unpack_mask_bits(bits: np.ndarray, n: int) -> np.ndarray:
+    """Inverse of :func:`pack_mask_bits` on the host: ``[P, CI, ceil(N/8)]``
+    uint8 -> ``[P, N, CI]`` bool."""
+    unpacked = np.unpackbits(bits, axis=-1, bitorder="little")[..., :n]
+    return np.ascontiguousarray(unpacked.transpose(0, 2, 1)).astype(bool)
+
+
+def instances_from_masks(keep: np.ndarray,         # [P, CI] bool
+                         conf: np.ndarray,         # [P, CI]
+                         npoint: np.ndarray,       # [P, CI]
+                         masks: np.ndarray,        # [P, N, CI] bool
+                         prop_mask: np.ndarray | None = None,  # [P] item filter
+                         label_offset: int = 1) -> List[Dict]:
+    """Host-side instance list (RLE masks) from ``instance_masks_device``
+    outputs: independent, possibly overlapping masks, class-major and
+    proposal-minor."""
+    _, ci = keep.shape
+    preds: List[Dict] = []
+    for i in range(ci):
+        for pp in np.nonzero(keep[:, i])[0]:
+            if prop_mask is not None and not prop_mask[pp]:
+                continue
+            preds.append({
+                "label_id": i + label_offset,
+                "conf": float(conf[pp, i]),
+                "npoint": int(npoint[pp, i]),
+                "pred_mask": rle_encode(masks[pp, :, i]),
             })
     return preds

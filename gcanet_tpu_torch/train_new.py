@@ -22,8 +22,9 @@ from gcanet_tpu_torch.train.trainer import Trainer
 def main(argv: list[str] | None = None, device: str | torch.device | None = None) -> int:
     cfg = build_option(argv)
     if is_scene_model(cfg.model_dict):
-        raise NotImplementedError(f"model_dict={cfg.model_dict!r}: the scene family's "
-                                  f"trainer is not ported yet (see ROADMAP.md)")
+        raise NotImplementedError(f"model_dict={cfg.model_dict!r}: scene training is not "
+                                  f"ported yet; the scene family serves through "
+                                  f"serve.py::ScenePredictor (see ROADMAP.md)")
     trainer = Trainer(cfg, device=device)
     try:
         trainer.train()

@@ -1,10 +1,12 @@
-"""Weights into the port's ``PrimitiveNet``: from a JAX/flax parameter tree,
-or from a reference-format ``checkpoint_eval{N}.tar``.
+"""Weights into the port's models: from a JAX/flax parameter tree, or from a
+reference-format ``checkpoint_eval{N}.tar``.
 
-The port's modules are named after the reference's ``model_state_dict`` keys
-(the ``torch_prefix`` column of ``gcanet_tpu/utils/import_torch.py::
-build_rules``), so one rule table serves both sources; this is the port's own
-copy of it.  Layout transforms:
+The flagship ``PrimitiveNet``'s modules are named after the reference's
+``model_state_dict`` keys (the ``torch_prefix`` column of
+``gcanet_tpu/utils/import_torch.py::build_rules``), so one rule table serves
+both sources; this is the port's own copy of it.  The scene ``SoftGroupNet``
+has its own table (``build_scene_rules``), from the flax tree of the JAX
+``SoftGroupNet``.  Layout transforms:
 
 * Dense / 1x1 conv: flax ``[in, out]`` -> ``[out, in]``; a reference
   Conv1d/Conv2d weight ``[out, in, 1(, 1)]`` is squeezed.
@@ -51,11 +53,37 @@ def _res_block_rules(prefix: str, fpath: tuple[str, ...],
     return rules
 
 
+def _instance_head_rules(prefix: str, ih: tuple[str, ...]) -> list[_Rule]:
+    """The instance head's rules: port keys under ``prefix``, flax path ``ih``."""
+    tu = ih + ("TinyUNet_0",)
+    rules: list[_Rule] = [
+        (f"{prefix}cls_linear", ih + ("Dense_0",), LINEAR, True),
+        (f"{prefix}iou_score_linear", ih + ("Dense_1",), LINEAR, True),
+        (f"{prefix}mask_linear.0", ih + ("MLP_0", "Dense_0"), LINEAR, True),
+        (f"{prefix}mask_linear.2", ih + ("MLP_0", "Dense_1"), LINEAR, True),
+        (f"{prefix}tiny_unet_outputlayer.0", ih + ("MaskedBatchNorm_0",), NORM, False),
+        (f"{prefix}tiny_unet_outputlayer.0", ih + ("MaskedBatchNorm_0",), BN_STATS, False),
+        (f"{prefix}tiny_unet.conv.0", tu + ("MaskedBatchNorm_0",), NORM, False),
+        (f"{prefix}tiny_unet.conv.0", tu + ("MaskedBatchNorm_0",), BN_STATS, False),
+        (f"{prefix}tiny_unet.conv.2", tu + ("Conv_0",), CONV3D, False),
+        (f"{prefix}tiny_unet.deconv.0", tu + ("MaskedBatchNorm_1",), NORM, False),
+        (f"{prefix}tiny_unet.deconv.0", tu + ("MaskedBatchNorm_1",), BN_STATS, False),
+        (f"{prefix}tiny_unet.deconv.2", tu + ("ConvTranspose_0",), DECONV3D, False),
+    ]
+    for i in range(2):
+        rules += _res_block_rules(f"{prefix}tiny_unet.blocks.block{i}",
+                                  tu + (f"ResidualBlock_{i}",))
+        rules += _res_block_rules(f"{prefix}tiny_unet.u.blocks.block{i}",
+                                  tu + (f"ResidualBlock_{i + 2}",))
+    rules += _res_block_rules(f"{prefix}tiny_unet.blocks_tail.block0", tu + ("ResidualBlock_4",),
+                              with_identity=True)
+    rules += _res_block_rules(f"{prefix}tiny_unet.blocks_tail.block1", tu + ("ResidualBlock_5",))
+    return rules
+
+
 def build_rules() -> list[_Rule]:
     """The mode-5 flagship key map (models/dgcnn-hais-concat-direct-4.py)."""
     enc = ("DGCNNEncoderGn_0",)
-    ih = ("InstanceHead_0",)
-    tu = ih + ("TinyUNet_0",)
     opm = ("OffsetPredModule_0",)
     rules: list[_Rule] = [
         ("encoder.conv1.0", enc + ("ConvGNAct_0", "Dense_0"), LINEAR, False),
@@ -88,26 +116,35 @@ def build_rules() -> list[_Rule]:
         ("offset_pred_block.attention.conv1.0", opm + ("KPAM_0", "Dense_0"), LINEAR, False),
         ("offset_pred_block.attention.conv1.2", opm + ("KPAM_0", "Dense_1"), LINEAR, False),
         ("offset_pred_block.mlp_offset", opm + ("Dense_0",), LINEAR, True),
-        ("cls_linear", ih + ("Dense_0",), LINEAR, True),
-        ("iou_score_linear", ih + ("Dense_1",), LINEAR, True),
-        ("mask_linear.0", ih + ("MLP_0", "Dense_0"), LINEAR, True),
-        ("mask_linear.2", ih + ("MLP_0", "Dense_1"), LINEAR, True),
-        ("tiny_unet_outputlayer.0", ih + ("MaskedBatchNorm_0",), NORM, False),
-        ("tiny_unet_outputlayer.0", ih + ("MaskedBatchNorm_0",), BN_STATS, False),
-        ("tiny_unet.conv.0", tu + ("MaskedBatchNorm_0",), NORM, False),
-        ("tiny_unet.conv.0", tu + ("MaskedBatchNorm_0",), BN_STATS, False),
-        ("tiny_unet.conv.2", tu + ("Conv_0",), CONV3D, False),
-        ("tiny_unet.deconv.0", tu + ("MaskedBatchNorm_1",), NORM, False),
-        ("tiny_unet.deconv.0", tu + ("MaskedBatchNorm_1",), BN_STATS, False),
-        ("tiny_unet.deconv.2", tu + ("ConvTranspose_0",), DECONV3D, False),
     ]
+    return rules + _instance_head_rules("", ("InstanceHead_0",))
+
+
+def build_scene_rules(instance_head: bool = True) -> list[_Rule]:
+    """The scene ``SoftGroupNet`` key map, from the flax tree of the JAX
+    ``SoftGroupNet`` (its U-Net's submodules are flax auto-names in call
+    order: the down paths' ``MaskedBatchNorm_0/1`` and ``Conv_0/1``, the up
+    paths' ``ConvTranspose_0/1``).  ``instance_head=False`` for a
+    ``semantic_only`` model."""
+    un = ("unet",)
+    rules: list[_Rule] = [
+        ("input_conv", ("input_conv",), LINEAR, False),
+        ("output_layer", ("output_layer",), NORM, False),
+        ("output_layer", ("output_layer",), BN_STATS, False),
+    ]
+    for head in ("semantic_linear", "offset_linear"):
+        rules += [(f"{head}.0", (head, "Dense_0"), LINEAR, True),
+                  (f"{head}.2", (head, "Dense_1"), LINEAR, True)]
     for i in range(2):
-        rules += _res_block_rules(f"tiny_unet.blocks.block{i}", tu + (f"ResidualBlock_{i}",))
-        rules += _res_block_rules(f"tiny_unet.u.blocks.block{i}",
-                                  tu + (f"ResidualBlock_{i + 2}",))
-    rules += _res_block_rules("tiny_unet.blocks_tail.block0", tu + ("ResidualBlock_4",),
-                              with_identity=True)
-    rules += _res_block_rules("tiny_unet.blocks_tail.block1", tu + ("ResidualBlock_5",))
+        rules += [(f"unet.down_norm.{i}", un + (f"MaskedBatchNorm_{i}",), NORM, False),
+                  (f"unet.down_norm.{i}", un + (f"MaskedBatchNorm_{i}",), BN_STATS, False),
+                  (f"unet.down_conv.{i}", un + (f"Conv_{i}",), CONV3D, False),
+                  (f"unet.up_conv.{i}", un + (f"ConvTranspose_{i}",), DECONV3D, False)]
+    for i in range(5):
+        rules += _res_block_rules(f"unet.blocks.{i}", un + (f"ResidualBlock_{i}",),
+                                  with_identity=i >= 3)
+    if instance_head:
+        rules += _instance_head_rules("instance_head.", ("instance_head",))
     return rules
 
 
@@ -120,10 +157,18 @@ def _leaf_pairs(kind: str, has_bias: bool) -> list[tuple[str, str]]:
     return [("weight", "kernel")] + ([("bias", "bias")] if has_bias else [])
 
 
-def key_kinds() -> dict[str, str]:
+def _rules(family: str, instance_head: bool = True) -> list[_Rule]:
+    if family == "flagship":
+        return build_rules()
+    if family == "scene":
+        return build_scene_rules(instance_head)
+    raise ValueError(f"unknown model family {family!r}; 'flagship' or 'scene'")
+
+
+def key_kinds(family: str = "flagship") -> dict[str, str]:
     """Every port state_dict key the rules cover, with its transform kind."""
     return {f"{prefix}.{leaf}": kind
-            for prefix, _, kind, has_bias in build_rules()
+            for prefix, _, kind, has_bias in _rules(family)
             for leaf, _ in _leaf_pairs(kind, has_bias)}
 
 
@@ -139,16 +184,18 @@ def _from_flax(kind: str, leaf: str, w: np.ndarray) -> np.ndarray:
     return w
 
 
-def state_dict_from_jax(params: Mapping, batch_stats: Mapping | None
-                        ) -> dict[str, torch.Tensor]:
-    """Flax ``(params, batch_stats)`` trees of the JAX ``PrimitiveNet``, as
-    nested dicts of numpy arrays, -> a state_dict of the port's ``PrimitiveNet``.
+def state_dict_from_jax(params: Mapping, batch_stats: Mapping | None,
+                        family: str = "flagship") -> dict[str, torch.Tensor]:
+    """Flax ``(params, batch_stats)`` trees of the JAX ``PrimitiveNet``
+    (``family="flagship"``) or ``SoftGroupNet`` (``family="scene"``; a tree
+    without ``instance_head`` is a ``semantic_only`` model's), as nested
+    dicts of numpy arrays, -> a state_dict of the port's counterpart.
 
     Every transform is a transpose or a flip, so a gradient tree of the
     params maps the same way onto the port's ``.grad`` tensors; pass
     ``batch_stats=None`` to map the params alone."""
     out: dict[str, torch.Tensor] = {}
-    for prefix, fpath, kind, has_bias in build_rules():
+    for prefix, fpath, kind, has_bias in _rules(family, "instance_head" in params):
         if kind == BN_STATS and batch_stats is None:
             continue
         node = batch_stats if kind == BN_STATS else params
@@ -207,21 +254,24 @@ def _strip(key: str) -> str:
 
 def load_reference_checkpoint(model: torch.nn.Module,
                               source: str | Path | Mapping[str, torch.Tensor],
-                              strict: bool = True) -> LoadReport:
+                              strict: bool = True, family: str = "flagship") -> LoadReport:
     """Load a reference-format checkpoint (``torch.save({epoch,
     model_state_dict, ...})``, as ``import_torch.save_reference_checkpoint``
     and the reference trainer write it), or a state_dict in either the
     reference's or the port's layout, into ``model`` by key intersection.
 
     With ``strict`` it raises when a port key is missing or a source key is
-    neither used nor a known dead/duplicate key (``KNOWN_UNUSED``).
+    neither used nor a known dead/duplicate key (``KNOWN_UNUSED``).  A
+    ``family="scene"`` source is a port state_dict of ``SoftGroupNet`` or a
+    ``torch.save`` of one (the reference SoftGroup's own checkpoints are not
+    mapped).
     """
     if isinstance(source, (str, Path)):
         ckpt = torch.load(source, map_location="cpu", weights_only=True)
         source = ckpt.get("model_state_dict", ckpt)
     src = {_strip(k): v if isinstance(v, torch.Tensor)
            else torch.from_numpy(np.array(v, order="C")) for k, v in source.items()}
-    kinds = key_kinds()
+    kinds = key_kinds(family)
     target = model.state_dict()
     new, loaded, missing = {}, [], []
     for key, cur in target.items():

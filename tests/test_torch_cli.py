@@ -21,6 +21,7 @@ from gcanet_tpu_torch.config import Config, build_option
 from gcanet_tpu_torch.data.abc_dataset import ABCDataset
 from gcanet_tpu_torch.models import registry
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
+from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
 from gcanet_tpu_torch.train.trainer import Trainer, prefetch_to_device
 
 torch.set_num_threads(1)
@@ -63,10 +64,13 @@ def test_registry_names_as_jax():
         assert registry.is_scene_model(name) == jregistry.is_scene_model(name), name
     assert set(registry._REGISTRY) == set(jregistry._REGISTRY)
     tiny = Config(num_points=64, nn_nb=8, offset_knn=4, offset_keypoints=8)
-    for name in ("models.dgcnn-hais-concat-direct-4", "gcanet_tpu.models.primitive_net"):
-        assert isinstance(registry.build_model(tiny.replace(model_dict=name)), PrimitiveNet)
-    for name in set(registry._REGISTRY) - {"models.dgcnn-hais-concat-direct-4",
-                                          "gcanet_tpu.models.primitive_net"}:
+    built = {"models.dgcnn-hais-concat-direct-4": PrimitiveNet,
+             "gcanet_tpu.models.primitive_net": PrimitiveNet,
+             "softgroup.model.softgroup": SoftGroupNet,
+             "gcanet_tpu.models.softgroup_scene": SoftGroupNet}
+    for name, cls in built.items():
+        assert isinstance(registry.build_model(tiny.replace(model_dict=name)), cls)
+    for name in set(registry._REGISTRY) - set(built):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             registry.build_model(tiny.replace(model_dict=name))
     with pytest.raises(KeyError):

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, and a tiny
-train step and eval step against the CPU, on the card.
+train step, eval step and scene forward against the CPU, on the card.
 
 Needs an NVIDIA GPU; skips without one.  Imports no JAX, so on a machine
 without it run it past the suite's conftest:
@@ -11,9 +11,10 @@ import pytest
 import torch
 
 from gcanet_tpu_torch.config import Config, GroupingConfig, InstanceHeadConfig
-from gcanet_tpu_torch.data.synthetic import synth_batch
+from gcanet_tpu_torch.data.synthetic import synth_batch, synth_scene_batch
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
 from gcanet_tpu_torch.ops import cc
+from gcanet_tpu_torch.serve import ScenePredictor
 
 pytestmark = pytest.mark.cuda
 
@@ -121,3 +122,25 @@ def test_eval_step_card_equals_cpu(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     assert res["proposals"] > 0
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_scene_card_equals_cpu(cuda, bf16):
+    """A tiny ``ScenePredictor`` model on the card and on the CPU from the
+    same pushed weights, proposals replayed on the CPU
+    (``chip_smoke.scene_card_vs_cpu``: phase 12's tolerances)."""
+    import chip_smoke
+
+    cfg = chip_smoke.scene_config(1024).replace(
+        scene_bf16=bf16, instance_head=InstanceHeadConfig(grid_size=8, max_proposals=24))
+    model = ScenePredictor(cfg, device="cpu", scene_grid=16).model
+    chip_smoke.push_scene_weights(model)
+    batch = synth_scene_batch(cfg, 2, seed=0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        res = chip_smoke.scene_card_vs_cpu(cfg, model.state_dict(), batch["xyz"], batch["feats"],
+                                           scene_grid=16)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert res["proposals"] > 0 and res["kept"] > 0

@@ -136,6 +136,23 @@ def test_predict_single_cloud_matches_batch_item(setup):
            [i["pred_mask"] for i in first["instances"]]
 
 
+def test_predict_stream_matches_batch(setup):
+    # the same batches through predict_stream (two run ahead of the oldest's
+    # copy to the host) give predict_batch's dicts, in order
+    predictor, xyz, nrm, _ = setup
+    rev = (xyz[::-1], nrm[::-1])
+    stream = list(predictor.predict_stream([(xyz, nrm), rev, (xyz, nrm)], depth=2))
+    want = predictor.predict_batch(xyz, nrm)
+    assert len(stream) == 3 * B
+    for got, w in zip(stream, want + predictor.predict_batch(*rev) + want):
+        assert got.keys() == w.keys()
+        for key, value in w.items():
+            if isinstance(value, np.ndarray):
+                np.testing.assert_array_equal(got[key], value, err_msg=key)
+            else:
+                assert got[key] == value, key
+
+
 def test_predictor_refuses_unported_paths(setup):
     predictor, xyz, nrm, _ = setup
     with pytest.raises(NotImplementedError):
