@@ -61,9 +61,29 @@ Phases (any failure ends the run with a non-zero exit):
      read just after; the stream's dicts against the batches'; then the
      sweep timed on one of the path's own N=8192 class masks;
  14. ``torch.profiler`` over two full-width scene ``predict_batch`` calls:
-     device busy share, top ops, the CC kernel's share.
+     device busy share, top ops, the CC kernel's share;
+ 15. a scene train step, card against CPU (N=2048, B=2, scene grid 32, 20
+     classes, TF32 off) with the U-Net in fp32 and in bf16, from the same
+     weights, batch and grid shift, the card's proposals replayed on the
+     CPU: every loss, the gradients, the new batch statistics (see
+     ``SCENE_*``); the CPU's grouping on the card's inputs gives the card's
+     proposals exactly;
+ 16. scene training at full width (N=8192, B=8, grid 64, 32 channels, 20
+     classes, bf16 U-Net, ``max_proposals`` 100, Adam 1e-3) through
+     ``SceneTrainer.train_one_epoch``: a warm-up epoch, then 2 warm-up and 5
+     timed steps with the launch counts set to 0 just before and read just
+     after: ms/step, scenes/s, peak memory, every step's losses (finite), CC
+     launches per step and sweeps per class per scene; ``test_one_epoch`` on
+     the 8 synthetic scenes (ms per scene, the AP/PQ keys, kept instances);
+     then ``train_new.main`` with ``--model_dict softgroup.model.softgroup``
+     trains 2 epochs of 2 batches and ``--eval`` on ``latest.tar`` must
+     reproduce epoch 1's record; then the sweep timed on one of the
+     training path's own class masks;
+ 17. ``torch.profiler`` over two full-width scene train steps: device busy
+     share, top ops, the CC kernel's share.
 Weights are random from a seed, with pushes so that the path after
-grouping does real work (``push_weights``, ``push_scene_weights``).
+grouping does real work (``push_weights``, ``push_scene_weights``).  Each
+phase prints its seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -89,13 +109,16 @@ from gcanet_tpu_torch.config import (Config, GroupingConfig, InstanceHeadConfig,
                                      scene_grouping_defaults)
 from gcanet_tpu_torch.data.synthetic import synth_batch, synth_clouds, synth_scene_batch
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
+from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
 from gcanet_tpu_torch.ops import cc
 from gcanet_tpu_torch.ops import grouping as grouping_ops
 from gcanet_tpu_torch.ops import voxelize as vox_ops
 from gcanet_tpu_torch.serve import Predictor, ScenePredictor
 from gcanet_tpu_torch.train import instances as inst_utils
+from gcanet_tpu_torch.train import scene_step
 from gcanet_tpu_torch.train import step as step_lib
 from gcanet_tpu_torch.train import trainer as trainer_mod
+from gcanet_tpu_torch.train.scene_trainer import SceneTrainer
 from gcanet_tpu_torch.train.trainer import Trainer
 from gcanet_tpu_torch.utils import kernels
 from gcanet_tpu_torch.utils.transfer import fetch
@@ -137,6 +160,20 @@ TRAIN_BF16_MIN_COSINE = 0.9
 # eval record: the same weights on the same clouds; the losses sum in
 # another order where float atomics (index_add_) do, the metrics are exact
 EVAL_REPEAT_LOSS_RTOL = 1e-5
+
+# the scene train step, card against CPU: the point-wise losses and their
+# gradient (the trunk's) as the flagship's with the U-Net in fp32; with the
+# bf16 U-Net the losses at CARD_VS_CPU_BF16 and the gradient by its cosine.
+# The instance branch runs through the bf16 head either way: its losses at
+# CARD_VS_CPU_BF16 and its gradient by cosine, as the flagship's bf16 head.
+SCENE_MIN_COSINE = 0.9
+
+# ``--eval`` of a scene checkpoint against the training run's record: the
+# voxel means sum with float atomics on the card, so two evaluations of
+# one checkpoint may differ in the logits' last bits, which can move a
+# point's argmax or swap two tied confidences.  Exact, or else every metric
+# within this absolute difference (and which differed is printed).
+SCENE_EVAL_REPEAT_ATOL = 0.02
 
 
 def check(cond: bool, msg: str) -> None:
@@ -619,6 +656,35 @@ def _forward_backward(model, batch, r1):
     return out, ld, grads[0], grads[1]
 
 
+def _grad_cosine(want: dict, got: dict) -> float:
+    """Cosine between two gradients, every tensor flattened into one vector."""
+    g = torch.cat([got[k].flatten() for k in want])
+    w = torch.cat([want[k].flatten() for k in want])
+    return float(g @ w / (g.norm() * w.norm()))
+
+
+def _hold_gradients(label: str, tag: str, want: dict, got: dict,
+                    atol_share: float) -> tuple[float, float]:
+    """Every gradient tensor of the card (``got``) against the CPU's
+    (``want``), elementwise within ``TRAIN_GRAD_RTOL`` and ``atol_share`` of
+    the largest entry of the whole gradient; prints the worst four and
+    returns the share needed and the worst relative L2 error."""
+    scale = max(float(w.abs().max()) for w in want.values())
+    rows = []
+    for name, w in want.items():
+        g = got[name]
+        check(bool(torch.isfinite(g).all()), f"{tag} gradient of {name} not finite")
+        excess = float(((g - w).abs() - TRAIN_GRAD_RTOL * w.abs()).max()) / scale
+        rel_l2 = float((g - w).norm() / w.norm().clamp(min=1e-30))
+        rows.append((excess, rel_l2, float((g - w).abs().max()), name))
+    rows.sort(reverse=True)
+    print(f"[{label}]   {tag} gradients, worst 4 (excess over rtol as a share of "
+          f"the largest entry {scale:.3g}, relative L2 error, max_abs_err): "
+          + "; ".join(f"{n} {e:.3g} {r:.3g} {a:.3g}" for e, r, a, n in rows[:4]))
+    check(rows[0][0] <= atol_share, f"{tag} gradient of {rows[0][3]} out of tolerance")
+    return rows[0][0], max(r[1] for r in rows)
+
+
 def train_step_card_vs_cpu(cfg: Config, state: dict, batch_np: dict, r1: torch.Tensor,
                            head_bf16: bool) -> dict:
     """One train step's losses, gradients and new batch statistics on the
@@ -651,29 +717,13 @@ def train_step_card_vs_cpu(cfg: Config, state: dict, batch_np: dict, r1: torch.T
 
     for tag, i in (("rest", 2), ("inst", 3)):
         want, got = cpu[i], card[i]
-        scale = max(float(w.abs().max()) for w in want.values())
         if tag == "inst" and head_bf16:
-            g = torch.cat([got[k].flatten() for k in want])
-            w = torch.cat([want[k].flatten() for k in want])
-            cos = float(g @ w / (g.norm() * w.norm()))
+            cos = _grad_cosine(want, got)
             res["inst_grad_cosine"] = cos
             check(cos >= TRAIN_BF16_MIN_COSINE, f"inst_loss gradient cosine {cos}")
             continue
-        rows = []
-        for name, w in want.items():
-            g = got[name]
-            check(bool(torch.isfinite(g).all()), f"{tag} gradient of {name} not finite")
-            excess = float(((g - w).abs() - TRAIN_GRAD_RTOL * w.abs()).max()) / scale
-            rel_l2 = float((g - w).norm() / w.norm().clamp(min=1e-30))
-            rows.append((excess, rel_l2, float((g - w).abs().max()), name))
-        rows.sort(reverse=True)
-        print(f"[train-vs-cpu]   {tag} gradients, worst 4 (excess over rtol as a share of "
-              f"the largest entry {scale:.3g}, relative L2 error, max_abs_err): "
-              + "; ".join(f"{n} {e:.3g} {r:.3g} {a:.3g}" for e, r, a, n in rows[:4]))
-        res[f"{tag}_grad_atol_share_needed"] = rows[0][0]
-        res[f"{tag}_grad_max_rel_l2"] = max(r[1] for r in rows)
-        check(rows[0][0] <= TRAIN_GRAD_ATOL_SHARE[tag],
-              f"{tag} gradient of {rows[0][3]} out of tolerance")
+        res[f"{tag}_grad_atol_share_needed"], res[f"{tag}_grad_max_rel_l2"] = _hold_gradients(
+            "train-vs-cpu", tag, want, got, TRAIN_GRAD_ATOL_SHARE[tag])
 
     stats_tol = CARD_VS_CPU_BF16 if head_bf16 else TRAIN_STATS
     card_sd, cpu_sd = models["cuda"].state_dict(), models["cpu"].state_dict()
@@ -731,13 +781,14 @@ def phase_train_card_vs_cpu() -> None:
 
 
 @contextlib.contextmanager
-def step_events():
-    """While open, every ``step_lib.train_step`` call is bracketed by CUDA
-    events, a host clock read at its start and a read of the CC kernel's
-    launch count; yields the list of ``(start, end, launches, result,
-    host_start)``."""
+def step_events(module=step_lib, name: str = "train_step"):
+    """While open, every ``module.<name>`` call (the flagship's
+    ``step_lib.train_step``, or ``scene_step.scene_train_step``) is
+    bracketed by CUDA events, a host clock read at its start and a read of
+    the CC kernel's launch count; yields the list of ``(start, end,
+    launches, result, host_start)``."""
     marks = []
-    real = step_lib.train_step
+    real = getattr(module, name)
 
     def timed(*args, **kw):
         start = torch.cuda.Event(enable_timing=True)
@@ -750,11 +801,11 @@ def step_events():
         marks.append((start, end, cc.masked_min_sweep.launches - before, out, host_start))
         return out
 
-    step_lib.train_step = timed
+    setattr(module, name, timed)
     try:
         yield marks
     finally:
-        step_lib.train_step = real
+        setattr(module, name, real)
         torch.cuda.synchronize()
 
 
@@ -901,17 +952,19 @@ def phase_eval_card_vs_cpu() -> None:
 
 
 @contextlib.contextmanager
-def cli_hooks(synth_batches: int):
+def cli_hooks(synth_batches: int, push=None, trainer_name: str = "Trainer"):
     """While open: synthetic epochs of ``synth_batches`` batches, every
-    model the trainer builds gets ``push_weights``, and every ``Trainer``
-    that ``train_new.main`` builds is recorded, with the host-clock seconds
-    of each ``test_one_epoch`` call.  Yields ``(trainers, eval_seconds)``."""
+    model the trainer builds gets ``push`` (``push_weights``), and every
+    ``train_new.<trainer_name>`` that ``train_new.main`` builds is recorded,
+    with the host-clock seconds of each ``test_one_epoch`` call.  Yields
+    ``(trainers, eval_seconds)``."""
     trainers, eval_seconds = [], []
-    real_build, real_trainer = trainer_mod.build_model, train_new.Trainer
+    push = push or push_weights
+    real_build, real_trainer = trainer_mod.build_model, getattr(train_new, trainer_name)
 
     def pushed(cfg):
         model = real_build(cfg)
-        push_weights(model)
+        push(model)
         return model
 
     class Recorded(real_trainer):
@@ -929,11 +982,13 @@ def cli_hooks(synth_batches: int):
 
     old = os.environ.get("GCA_SYNTH_BATCHES")
     os.environ["GCA_SYNTH_BATCHES"] = str(synth_batches)
-    trainer_mod.build_model, train_new.Trainer = pushed, Recorded
+    trainer_mod.build_model = pushed
+    setattr(train_new, trainer_name, Recorded)
     try:
         yield trainers, eval_seconds
     finally:
-        trainer_mod.build_model, train_new.Trainer = real_build, real_trainer
+        trainer_mod.build_model = real_build
+        setattr(train_new, trainer_name, real_trainer)
         if old is None:
             del os.environ["GCA_SYNTH_BATCHES"]
         else:
@@ -1244,32 +1299,340 @@ def phase_scene_profile() -> None:
     _profile(f"2 x scene predict_batch(B=8, N={cfg.num_points}, grid 64)", two_batches)
 
 
+def _scene_forward_backward(model, batch, r1):
+    """The scene train step up to the optimizer: forward in training mode,
+    the losses, and the gradients of the point-wise losses (semantic +
+    offset, the trunk's) and of the instance losses apart."""
+    model.train()
+    out = model(batch["xyz"], batch["feats"], r1=r1)
+    total, ld = scene_step.compute_scene_losses(model.cfg, out, batch)
+    point = ld["semantic_loss"] + ld["offset_loss"]
+    names, ps = zip(*model.named_parameters())
+    grads = []
+    for loss, keep in ((point, True), (total - point, False)):
+        gs = torch.autograd.grad(loss, ps, retain_graph=keep, allow_unused=True)
+        grads.append({n: (torch.zeros_like(p) if g is None else g).detach().cpu()
+                      for n, p, g in zip(names, ps, gs)})
+    ld = {k: v.detach().cpu() for k, v in dict(ld, total_loss=total).items()}
+    return out, ld, grads[0], grads[1]
+
+
+def scene_train_card_vs_cpu(cfg: Config, state: dict, batch_np: dict, r1: torch.Tensor,
+                            grid: int) -> dict:
+    """One scene train step's losses, gradients and new batch statistics on
+    the card and on the CPU, from the same weights, batch and grid shift,
+    the card's proposals replayed on the CPU, U-Net in ``cfg.scene_bf16``
+    (see ``SCENE_MIN_COSINE``); then the CPU's ``build_soft_proposals`` on
+    the card's shifted coordinates and logits must give the card's
+    proposals.  Returns the worst errors; raises on any out of tolerance."""
+    bf16 = bool(cfg.scene_bf16)
+    models, batches = {}, {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = SoftGroupNet(cfg, scene_grid=grid, compute_bf16=bf16).to(dev)
+        models[dev].load_state_dict(state)
+        batches[dev] = step_lib.batch_to_device(batch_np, dev)
+    with ProposalReplay("build_soft_proposals") as props:
+        card = _scene_forward_backward(models["cuda"], batches["cuda"], r1.cuda())
+        props.replaying = True
+        cpu = _scene_forward_backward(models["cpu"], batches["cpu"], r1.cpu())
+    res = {"cpu_own_proposals_equal": props.own_equal, "proposals": int(cpu[0].proposals.num),
+           "num_pos": float(cpu[1]["num_pos"])}
+    check(res["proposals"] > 0 and float(cpu[1]["cls_loss"]) > 0,
+          "the scene train step's instance path did no work")
+
+    worst = 0.0
+    for k, w in cpu[1].items():
+        g = card[1][k]
+        check(bool(torch.isfinite(g)), f"scene {k} not finite on the card")
+        if k == "num_pos":
+            check(torch.equal(g, w), f"num_pos: card {float(g)} CPU {float(w)}")
+            continue
+        point = k in ("semantic_loss", "offset_loss")
+        tol = TRAIN_LOSS if point and not bf16 else CARD_VS_CPU_BF16
+        check(torch.allclose(g, w, **tol), f"scene {k}: card {float(g)} CPU {float(w)}")
+        worst = max(worst, float((g - w).abs()) / max(abs(float(w)), 1e-12))
+    res["loss_max_rel_err"] = worst
+
+    for tag, i in (("point", 2), ("inst", 3)):
+        want, got = cpu[i], card[i]
+        if tag == "point" and not bf16:
+            res["point_grad_atol_share_needed"], res["point_grad_max_rel_l2"] = \
+                _hold_gradients("scene-train-vs-cpu", tag, want, got,
+                                TRAIN_GRAD_ATOL_SHARE["rest"])
+        else:
+            cos = _grad_cosine(want, got)
+            res[f"{tag}_grad_cosine"] = cos
+            check(cos >= SCENE_MIN_COSINE, f"scene {tag} gradient cosine {cos}")
+
+    card_sd, cpu_sd = models["cuda"].state_dict(), models["cpu"].state_dict()
+    err = 0.0
+    for k in (k for k in cpu_sd if "running" in k):
+        g, w = card_sd[k].cpu(), cpu_sd[k]
+        head = k.startswith("instance_head.")
+        check(not torch.equal(w, state[k]), f"{k} did not move")
+        check(torch.allclose(g, w, **(CARD_VS_CPU_BF16 if head or bf16 else TRAIN_STATS)),
+              f"scene batch statistic {k}")
+        if not head:
+            err = max(err, float((g - w).abs().max()))
+    res["trunk_stats_max_abs_err"] = err
+
+    b, n = batch_np["xyz"].shape[:2]
+    out = card[0]
+    shifted = (batches["cuda"]["xyz"] + out.pt_offsets.reshape(b, n, 3)).detach().float().cpu()
+    logits = out.semantic_scores.reshape(b, n, -1).detach().float().cpu()
+    again = grouping_ops.build_soft_proposals(shifted, logits, cfg.num_primitives,
+                                              cfg.grouping, cfg.instance_head.max_proposals)
+    for field in again._fields:
+        check(torch.equal(getattr(out.proposals, field).cpu(), getattr(again, field)),
+              f"scene training proposals.{field}: the CPU on the card's inputs differs")
+    return res
+
+
+def phase_scene_train_card_vs_cpu() -> None:
+    """Phase 15: the scene train step, card against CPU, reduced size, U-Net
+    in fp32 and in bf16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grid = 32
+    cfg = scene_config(2048).replace(batch_size=2)
+    model = SoftGroupNet(cfg, scene_grid=grid)
+    push_scene_weights(model)
+    batch = synth_scene_batch(cfg, cfg.batch_size, seed=13)
+    r1 = torch.rand((2, 3), generator=torch.Generator().manual_seed(14))
+    for bf16 in (False, True):
+        res = scene_train_card_vs_cpu(cfg.replace(scene_bf16=bf16), model.state_dict(), batch,
+                                      r1, grid)
+        print(f"[scene-train-vs-cpu] N={cfg.num_points} B={cfg.batch_size} grid {grid}, U-Net "
+              f"{'bf16' if bf16 else 'fp32'}: "
+              + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                          for k, v in res.items()))
+    print(f"[scene-train-vs-cpu] tolerances: semantic and offset losses {TRAIN_LOSS} (bf16 "
+          f"U-Net {CARD_VS_CPU_BF16}), instance losses {CARD_VS_CPU_BF16}, num_pos exact; "
+          f"point-wise gradients rtol {TRAIN_GRAD_RTOL}, atol {TRAIN_GRAD_ATOL_SHARE['rest']} x "
+          f"the largest entry (bf16 U-Net: cosine >= {SCENE_MIN_COSINE}); instance gradients "
+          f"cosine >= {SCENE_MIN_COSINE}; trunk statistics {TRAIN_STATS} (bf16 U-Net and the "
+          f"head's {CARD_VS_CPU_BF16}); proposals on the card's inputs exact")
+
+
+@contextlib.contextmanager
+def soft_grouping_calls():
+    """While open, every ``build_soft_proposals`` call is recorded: yields a
+    list of ``(shifted, logits, proposals.num)``, the tensors of the last
+    call only."""
+    calls = []
+    real = grouping_ops.build_soft_proposals
+
+    def recorded(shifted, logits, *args, **kw):
+        props = real(shifted, logits, *args, **kw)
+        if calls:
+            calls[-1] = (None, None, calls[-1][2])
+        calls.append((shifted, logits, int(props.num)))
+        return props
+
+    grouping_ops.build_soft_proposals = recorded
+    try:
+        yield calls
+    finally:
+        grouping_ops.build_soft_proposals = real
+
+
+def scene_train_config(log_dir: str) -> Config:
+    """The scene training configuration at full width: the serving one
+    (``scene_config(8192)``) at B=8, synthetic data, Adam 1e-3."""
+    return scene_config(8192).replace(batch_size=8, log_dir=log_dir, data_path=log_dir,
+                                      not_load_model=True)
+
+
+def _scene_records(log_dir: str) -> list[dict]:
+    with open(os.path.join(log_dir, "scalars_test.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_scene_training(trainer: SceneTrainer, card_name: str, smi: str) -> dict:
+    """Phase 16: scene training and evaluation at full width, the scene CLI,
+    and the sweep on the training path's class mask.  Returns the CC
+    kernel's launches by run and the sweep's times."""
+    cfg = trainer.cfg
+    warm, steps, b, n = 2, 5, cfg.batch_size, cfg.num_points
+    gc = cfg.num_primitives - len(cfg.grouping.ignore_classes)
+    trainer.train_one_epoch(0, num_batches=2)                   # first use: builds, cuDNN
+    torch.cuda.synchronize()
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with step_events(scene_step, "scene_train_step") as marks, soft_grouping_calls() as groups:
+        history = trainer.train_one_epoch(1, num_batches=warm + steps)
+    wall = time.perf_counter() - marks[warm][4]
+    train_launches = _launches()["masked_min_sweep"]
+    peak = torch.cuda.max_memory_allocated()
+    ms = marks[warm][0].elapsed_time(marks[-1][1]) / steps
+    per_step = [(s.elapsed_time(e), k) for s, e, k, _, _ in marks]
+    timed_launches = sum(k for _, k in per_step[warm:])
+    print(f"[scene-train] N={n} B={b} grid {trainer.model.scene_grid} channels "
+          f"{trainer.model.channels} classes {cfg.num_primitives} ({gc} grouped) "
+          f"P={cfg.instance_head.max_proposals} bf16 U-Net {cfg.scene_bf16}: {steps} steps after "
+          f"{warm} warm-up steps of one epoch: {ms:.1f} ms/step (CUDA events; host clock "
+          f"{wall / steps * 1e3:.1f}), {b * 1e3 / ms:.2f} scenes/s, peak memory "
+          f"{peak / 2**30:.2f} GiB ({smi})")
+    print(f"[scene-train] per step ms (the epoch's first {warm} untimed): "
+          f"{[round(t, 1) for t, _ in per_step]}; CC launches per step "
+          f"{[k for _, k in per_step]}; proposals per step {[c[2] for c in groups]}")
+    for i, m in enumerate(history):
+        print(f"[scene-train] step {i}: " + ", ".join(f"{k} {float(v):.4g}" for k, v in m.items()))
+    check(all(bool(torch.isfinite(v)) for m in history for v in m.values()),
+          "a scene train step's loss is not finite")
+    check(all(k > 0 for _, k in per_step) and train_launches > 0,
+          "a scene train step launched no CC sweep")
+    check(all(c[2] > 0 for c in groups), "a full-width scene train batch made no proposal")
+    print(f"[scene-train] masked_min_sweep launches {train_launches} over {warm + steps} steps; "
+          f"per timed step {timed_launches / steps:.1f} ({gc * b} CC runs), "
+          f"{timed_launches / (steps * gc * b):.2f} sweeps per class per scene ({smi})")
+
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    miou, ap50 = trainer.test_one_epoch(1)
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter() - t0
+    eval_launches = _launches()["masked_min_sweep"]
+    eval_peak = torch.cuda.max_memory_allocated()
+    rec = _scene_records(cfg.log_dir)[-1]
+    kept = []
+    for batch in trainer._test_batches():
+        keep = trainer._eval_forward(batch)[0]
+        kept.append(int(keep[:, : cfg.num_primitives - 1].sum()))
+    check({"miou", "acc", "pq", "all_ap", "all_ap_50%", "all_ap_25%"} <= set(rec)
+          and all(np.isfinite(v) for v in rec.values()), f"scene eval record {rec}")
+    check(trainer.eval_errors == 0, f"scene eval errors {trainer.eval_errors}")
+    check(all(k > 0 for k in kept), f"a full-width eval scene kept no instance: {kept}")
+    print(f"[scene-eval] test_one_epoch, 8 synthetic scenes (B=1): "
+          f"{t_eval / 8 * 1e3:.1f} ms per scene (host clock), peak memory "
+          f"{eval_peak / 2**30:.2f} GiB, {eval_launches} sweeps, "
+          f"{eval_launches / (8 * gc):.2f} per class per scene; kept instances per scene {kept}; "
+          f"miou {miou:.4f} AP50 {ap50:.4f} " + ", ".join(
+              f"{k} {rec[k]:.4f}" for k in ("acc", "pq", "all_ap", "all_ap_25%")) + f" ({smi})")
+
+    cli = _scene_cli(smi)
+
+    # the sweep on one of the training path's own class masks: the last
+    # train step's scene 0, first grouped class
+    shifted, logits, _ = groups[-1]
+    ci = [c for c in range(cfg.num_primitives) if c not in cfg.grouping.ignore_classes][0]
+    member = torch.softmax(logits[0], -1)[:, ci] > cfg.grouping.score_thr
+    nbr = (grouping_ops.radius_neighbor_mask(shifted[0], cfg.grouping.radius)
+           & member[:, None] & member[None, :])
+    labels = torch.arange(n, dtype=torch.int32, device="cuda")
+    check(torch.equal(cc.masked_min_sweep(nbr, labels), cc.masked_min_sweep_plain(nbr, labels)),
+          "sweep on the scene training class mask")
+    ms_sweep = time_graph(lambda: cc.masked_min_sweep(nbr, labels), 100)
+    plain_ms = time_graph(lambda: cc.masked_min_sweep_plain(nbr, labels), 10)
+    nbytes = n * n + 8 * n
+    bound_ms = nbytes / hbm_rate(card_name) * 1e3
+    print(f"[kernel] masked_min_sweep on the N={n} scene training mask of class {ci} "
+          f"({int(member.sum())} members, {int(nbr.sum())} edges; {nbytes / 1e6:.1f} MB): "
+          f"{ms_sweep * 1e3:.2f} us/sweep, plain {plain_ms * 1e3:.2f} us, bound "
+          f"{bound_ms * 1e3:.2f} us, {bound_ms / ms_sweep:.1%} of the bound ({smi})")
+    return {"scene_train": train_launches, "scene_eval": eval_launches, **cli,
+            "mask": {"n": n, "ms": ms_sweep, "plain_ms": plain_ms, "bound_ms": bound_ms}}
+
+
+def _scene_cli(smi: str) -> dict:
+    """``train_new.main`` with the scene family at full width: 2 epochs of
+    2 synthetic batches, evaluating after each, then ``--eval`` on
+    ``latest.tar`` against epoch 1's record."""
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as root, \
+            cli_hooks(2, push_scene_weights, "SceneTrainer") as (trainers, eval_seconds):
+        log_dir = os.path.join(root, "log")
+        argv = ["--log_dir", log_dir, "--data_path", os.path.join(root, "none"),
+                "--model_dict", "softgroup.model.softgroup", "--num_points", "8192",
+                "--num_primitives", "20", "--batch_size", "8", "--max_epoch", "2",
+                "--eval_interval", "1", "--save_interval", "1"]
+        _reset_launches()
+        with step_events(scene_step, "scene_train_step") as marks:
+            check(train_new.main(argv + ["--not_load_model"]) == 0, "scene main (train) exit code")
+        train_run = _launches()["masked_min_sweep"]
+        ckpts = set(os.listdir(os.path.join(log_dir, "checkpoint")))
+        check({"eval0.tar", "eval1.tar", "latest.tar"} <= ckpts, f"checkpoints {sorted(ckpts)}")
+        check(len(_scene_records(log_dir)) == 2, "scene test records after 2 epochs")
+        _reset_launches()
+        check(train_new.main(argv + ["--eval"]) == 0, "scene main (--eval) exit code")
+        eval_run = _launches()["masked_min_sweep"]
+        records = _scene_records(log_dir)
+    check(len(trainers) == 2 and all(t.eval_errors == 0 for t in trainers),
+          f"scene eval errors {[t.eval_errors for t in trainers]}")
+    check(all(bool(torch.isfinite(v)) for _, _, _, m, _ in marks for v in m.values()),
+          "a scene CLI train step's loss is not finite")
+    epoch1, again = records[1], records[2]
+    check(again["step"] == 2, f"scene --eval resumed at epoch {again['step']}, not 2")
+    keys = [k for k in epoch1 if k not in ("step", "time")]
+    differing = {k: (epoch1[k], again[k]) for k in keys if again[k] != epoch1[k]}
+    check(all(abs(a - e) <= SCENE_EVAL_REPEAT_ATOL for e, a in differing.values()),
+          f"scene --eval differs from epoch 1's record: {differing}")
+    step_ms = [s.elapsed_time(e) for s, e, _, _, _ in marks]
+    print(f"[scene-cli] main(train): {len(marks)} steps in 2 epochs, ms per step (CUDA events) "
+          f"{[round(t, 1) for t in step_ms]}; ms per eval scene: epoch 0 "
+          f"{eval_seconds[0] / 8 * 1e3:.1f}, epoch 1 {eval_seconds[1] / 8 * 1e3:.1f}, --eval "
+          f"{eval_seconds[2] / 8 * 1e3:.1f} ({smi})")
+    print(f"[scene-cli] masked_min_sweep launches: train run {train_run}, --eval run {eval_run}; "
+          f"--eval against epoch 1's record: "
+          + ("exact" if not differing else f"not exact (within {SCENE_EVAL_REPEAT_ATOL}): "
+             f"{differing}") + f"; miou {again['miou']:.4f}, AP50 {again['all_ap_50%']:.4f}")
+    check(train_run > 0 and eval_run > 0, "the scene CLI launched no CC sweep")
+    return {"scene_cli_train": train_run, "scene_cli_eval": eval_run}
+
+
+def phase_scene_train_profile(trainer: SceneTrainer) -> None:
+    """Phase 17: two full-width scene train steps (B=8) under the profiler."""
+    cfg = trainer.cfg
+    _profile(f"2 scene train steps (B={cfg.batch_size}, N={cfg.num_points}, grid "
+             f"{trainer.model.scene_grid}, forward + backward + Adam)",
+             lambda: trainer.train_one_epoch(2, num_batches=2))
+
+
+def run_phase(number: int, fn, *args):
+    """``fn(*args)``, its host-clock seconds printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[phase {number}] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    card_name, smi = phase_card()
-    phase_build()
-    max_err = phase_kernel_check()
-    phase_card_vs_cpu()
-    kernel_rows = phase_serving(card_name, max_err)
-    phase_profile()
-    phase_train_card_vs_cpu()
+    card_name, smi = run_phase(1, phase_card)
+    run_phase(2, phase_build)
+    max_err = run_phase(3, phase_kernel_check)
+    run_phase(4, phase_card_vs_cpu)
+    kernel_rows = run_phase(5, phase_serving, card_name, max_err)
+    run_phase(6, phase_profile)
+    run_phase(7, phase_train_card_vs_cpu)
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as log_dir:
-        train_launches = phase_training(log_dir)
-        phase_train_profile(log_dir)
-    phase_eval_card_vs_cpu()
-    cli_launches = phase_cli(smi)
-    phase_scene_card_vs_cpu()
-    scene = phase_scene_serving(card_name, smi)
-    phase_scene_profile()
+        train_launches = run_phase(8, phase_training, log_dir)
+        run_phase(9, phase_train_profile, log_dir)
+    run_phase(10, phase_eval_card_vs_cpu)
+    cli_launches = run_phase(11, phase_cli, smi)
+    run_phase(12, phase_scene_card_vs_cpu)
+    scene = run_phase(13, phase_scene_serving, card_name, smi)
+    run_phase(14, phase_scene_profile)
+    run_phase(15, phase_scene_train_card_vs_cpu)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as log_dir:
+        trainer = SceneTrainer(scene_train_config(log_dir))
+        try:
+            push_scene_weights(trainer.model)
+            scene_train = run_phase(16, phase_scene_training, trainer, card_name, smi)
+            run_phase(17, phase_scene_train_profile, trainer)
+        finally:
+            trainer.close()
     row = kernel_rows[0]
+    scene_train_mask = scene_train.pop("mask")
     row["launches_by_path"] = {"serve": row["launches"], "train": train_launches,
-                               **cli_launches, "scene_serve": scene["launches"]}
-    row["launches"] += train_launches + sum(cli_launches.values()) + scene["launches"]
+                               **cli_launches, "scene_serve": scene["launches"], **scene_train}
+    row["launches"] = sum(row["launches_by_path"].values())
     row["scene_mask"] = {k: scene[k] for k in ("n", "ms", "plain_ms", "bound_ms")}
+    row["scene_train_mask"] = scene_train_mask
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

@@ -4,7 +4,8 @@ A copy of ``GroupingConfig``, ``InstanceHeadConfig``, ``Config`` and the CLI
 (``build_option``, ``config_from_namespace``) from the JAX package's
 ``config.py``: same field names, same defaults, same flags, so one argv gives
 the same config in both packages.  ``check_supported`` and
-``check_trainable`` refuse the values whose code paths are not ported yet;
+``check_trainable`` refuse the values whose code paths are not ported yet
+(each with ``scene=True`` for the SoftGroup scene family);
 the CLI parses them and leaves the refusal to the entry points.
 """
 
@@ -203,12 +204,17 @@ def check_supported(cfg: Config, scene: bool = False) -> None:
     }, "model option")
 
 
-def check_trainable(cfg: Config) -> None:
+def check_trainable(cfg: Config, scene: bool = False) -> None:
     """Raise on config values the training path does not honour yet: the
     recomputing backward (``remat``), the reverse-gather backward
     (``edge_backward="revgather:M"``), the bf16 step cast
-    (``precision="bf16"``) and data parallelism (``mesh_shape`` > 1)."""
-    check_supported(cfg)
+    (``precision="bf16"``) and data parallelism (``mesh_shape`` > 1).  The
+    scene step (``scene=True``) reads none of the first three, as in the
+    JAX package, and refuses only ``mesh_shape`` > 1."""
+    check_supported(cfg, scene=scene)
+    if scene:
+        _refuse({"mesh_shape": str(cfg.mesh_shape) not in ("1", "")}, "training option")
+        return
     _refuse({
         "remat": cfg.remat,
         "edge_backward": cfg.edge_backward != "scatter",

@@ -13,11 +13,13 @@ channels-first inside (``[B, C, G, G, G]``, for ``conv3d``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from gcanet_tpu_torch.config import Config, check_supported
@@ -36,12 +38,15 @@ class SceneUNet(nn.Module):
     each way down is masked BN, ReLU and a stride-2 conv, each way up a
     stride-2 transposed conv.  The stride-2 occupancy is a 2^3 max-pool.
     Runs in x's dtype (bf16 or fp32); batch norm statistics are fp32 and
-    the output is fp32.
+    the output is fp32.  ``remat`` recomputes each residual block in the
+    backward instead of keeping its activations (``torch.utils.checkpoint``;
+    the JAX package's ``fnn.remat(ResidualBlock)``).
     """
 
-    def __init__(self, channels: int = 32):
+    def __init__(self, channels: int = 32, remat: bool = False):
         super().__init__()
         c = channels
+        self.remat = remat
         self.blocks = nn.ModuleList([
             ResidualBlock(c, c), ResidualBlock(2 * c, 2 * c), ResidualBlock(4 * c, 4 * c),
             ResidualBlock(4 * c, 2 * c), ResidualBlock(2 * c, c)])
@@ -59,15 +64,37 @@ class SceneUNet(nn.Module):
     def _up(self, i: int, h: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
         return F.conv_transpose3d(h, self.up_conv[i].weight.to(h.dtype), stride=2) * a
 
+    def _block(self, i: int, h: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+        block = self.blocks[i]
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return block(h, a)
+        return torch.utils.checkpoint.checkpoint(
+            block, h, a, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(), _stats_kept(block)))
+
     def forward(self, x: torch.Tensor, a0: torch.Tensor) -> torch.Tensor:
-        x0 = self.blocks[0](x, a0)
+        x0 = self._block(0, x, a0)
         x1, a1 = self._down(0, x0, a0)
-        x1 = self.blocks[1](x1, a1)
+        x1 = self._block(1, x1, a1)
         x2, a2 = self._down(1, x1, a1)
-        x2 = self.blocks[2](x2, a2)
-        x1 = self.blocks[3](torch.cat([x1, self._up(0, x2, a1)], dim=1), a1)
-        x0 = self.blocks[4](torch.cat([x0, self._up(1, x1, a0)], dim=1), a0)
+        x2 = self._block(2, x2, a2)
+        x1 = self._block(3, torch.cat([x1, self._up(0, x2, a1)], dim=1), a1)
+        x0 = self._block(4, torch.cat([x0, self._up(1, x1, a0)], dim=1), a0)
         return x0.float()
+
+
+@contextlib.contextmanager
+def _stats_kept(module: nn.Module):
+    """The backward's recomputation of a checkpointed block moves no running
+    statistic a second time (flax's remat drops the recomputed
+    ``batch_stats``): they are put back as they were."""
+    saved = {k: v.clone() for k, v in module.named_buffers()}
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for k, v in module.named_buffers():
+                v.copy_(saved[k])
 
 
 class SoftGroupOutput(NamedTuple):
@@ -84,7 +111,8 @@ class SoftGroupNet(nn.Module):
 
     ``scene_grid`` is the voxel resolution (a multiple of 4);
     ``compute_bf16`` runs the U-Net in bf16; ``semantic_only`` builds the
-    backbone and point heads alone (no instance head, no grouping).  The
+    backbone and point heads alone (no instance head, no grouping);
+    ``remat`` recomputes the U-Net's residual blocks in the backward.  The
     instance head is bf16 whatever ``compute_bf16`` says, as in the JAX
     package.  Grouping is soft per class (``cfg.scene_soft_grouping``) or
     the flagship's argmax partition with both affinity gates off.  Weights
@@ -92,7 +120,8 @@ class SoftGroupNet(nn.Module):
     """
 
     def __init__(self, cfg: Config, scene_grid: int = 64, channels: int = 32,
-                 compute_bf16: bool = False, semantic_only: bool = False):
+                 compute_bf16: bool = False, semantic_only: bool = False,
+                 remat: bool = False):
         super().__init__()
         check_supported(cfg, scene=True)
         if scene_grid % 4:
@@ -104,7 +133,7 @@ class SoftGroupNet(nn.Module):
         self.semantic_only = semantic_only
         num_cls = cfg.num_primitives
         self.input_conv = nn.Linear(3, channels, bias=False)
-        self.unet = SceneUNet(channels)
+        self.unet = SceneUNet(channels, remat=remat)
         self.output_layer = MaskedBatchNorm(channels)
         self.semantic_linear = MLP(channels, num_cls, hidden_features=channels)
         self.offset_linear = MLP(channels, 3, hidden_features=channels)
@@ -134,11 +163,18 @@ class SoftGroupNet(nn.Module):
         bid = torch.arange(b, device=xyz.device).repeat_interleave(n)
         return h.reshape(b, self.channels, g3)[bid, :, vid.reshape(-1).long()]
 
-    def forward(self, xyz: torch.Tensor, feats: torch.Tensor,
-                x4_split: bool = False) -> SoftGroupOutput:
+    def forward(self, xyz: torch.Tensor, feats: torch.Tensor, x4_split: bool = False,
+                r1: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> SoftGroupOutput:
         """``x4_split`` (one scene, 4 | N) runs the backbone on the 4
         interleaved parts ``[p::4]`` as a batch of 4 and re-interleaves the
-        point features (the S3DIS test protocol, softgroup.py:380-411)."""
+        point features (the S3DIS test protocol, softgroup.py:380-411).  In
+        training mode the proposal grids shift by ``r1 [2, 3]`` when given,
+        else by a draw from ``generator`` (on the model's device); both are
+        unused in eval mode."""
+        if self.training and not self.semantic_only and r1 is None and generator is None:
+            raise ValueError("the training forward draws its grid shift from r1 or a "
+                             "generator; it never uses torch's global RNG")
         cfg = self.cfg
         b, n, _ = feats.shape
         num_cls = cfg.num_primitives
@@ -180,6 +216,6 @@ class SoftGroupNet(nn.Module):
         vx = vox_ops.clusters_voxelization(
             xyz.reshape(b * n, 3), pfeat, proposals.point_pid,
             num_proposals=ih.max_proposals, grid_size=ih.grid_size,
-            rand_quantize=self.training)
+            rand_quantize=self.training, r1=r1, generator=generator)
         instance = self.instance_head(vx.feats, vx.active, vx.entry_voxel, proposals.point_pid)
         return SoftGroupOutput(semantic_scores, pt_offsets, proposals, instance)

@@ -245,20 +245,24 @@ def instances_from_masks(keep: np.ndarray,         # [P, CI] bool
                          npoint: np.ndarray,       # [P, CI]
                          masks: np.ndarray,        # [P, N, CI] bool
                          prop_mask: np.ndarray | None = None,  # [P] item filter
-                         label_offset: int = 1) -> List[Dict]:
-    """Host-side instance list (RLE masks) from ``instance_masks_device``
-    outputs: independent, possibly overlapping masks, class-major and
-    proposal-minor."""
+                         label_offset: int = 1,
+                         encode_rle: bool = True) -> List[Dict]:
+    """Host-side instance list from ``instance_masks_device`` outputs:
+    independent, possibly overlapping masks, class-major and
+    proposal-minor; each mask RLE-encoded under ``pred_mask``, or with
+    ``encode_rle=False`` a dense bool array under ``mask``."""
     _, ci = keep.shape
     preds: List[Dict] = []
     for i in range(ci):
         for pp in np.nonzero(keep[:, i])[0]:
             if prop_mask is not None and not prop_mask[pp]:
                 continue
+            mask = masks[pp, :, i]
             preds.append({
                 "label_id": i + label_offset,
                 "conf": float(conf[pp, i]),
                 "npoint": int(npoint[pp, i]),
-                "pred_mask": rle_encode(masks[pp, :, i]),
+                "pred_mask" if encode_rle else "mask":
+                    rle_encode(mask) if encode_rle else mask,
             })
     return preds

@@ -116,10 +116,17 @@ class Trainer:
     """Trains and evaluates the flagship model on one device: ``cuda``
     unless ``device="cpu"`` is asked for; raises when no card is present.
     With ``cfg.eval`` only the model options are checked (the eval step
-    honours no training knob)."""
+    honours no training knob).
+
+    A model family's trainer (``scene_trainer.SceneTrainer``) sets ``scene``
+    and ``synth`` (its synthetic batch maker) and overrides ``_train_step``,
+    ``build_dataloaders`` and ``test_one_epoch``."""
+
+    scene = False
+    synth = staticmethod(synth_batch)
 
     def __init__(self, cfg: Config, device: str | torch.device | None = None):
-        (check_supported if cfg.eval else check_trainable)(cfg)
+        (check_supported if cfg.eval else check_trainable)(cfg, scene=self.scene)
         self.cfg = cfg
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -236,7 +243,7 @@ class Trainer:
         if num_batches is None:
             num_batches = int(os.environ.get("GCA_SYNTH_BATCHES", "32"))
         for i in range(num_batches):
-            yield synth_batch(cfg, hi - lo, seed=(epoch * 1000 + i) * world + rank)
+            yield self.synth(cfg, hi - lo, seed=(epoch * 1000 + i) * world + rank)
 
     def _test_batches(self):
         """Batch-1 eval stream: the test list in order, or the 8 synthetic
@@ -247,7 +254,7 @@ class Trainer:
             return
         for i in range(8):
             if i % world == rank:
-                yield synth_batch(self.cfg, 1, seed=90000 + i)
+                yield self.synth(self.cfg, 1, seed=90000 + i)
 
     # ------------------------------------------------------------------ loops
     def _set_lr(self, epoch: int) -> float:
@@ -269,8 +276,7 @@ class Trainer:
         step_t0 = time.time()
         batches = prefetch_to_device(self._train_batches(epoch, num_batches), self.device)
         for batch_idx, batch in enumerate(batches):
-            history.append(step_lib.train_step(self.model, self.optimizer, batch,
-                                               self.generator))
+            history.append(self._train_step(batch))
             if (batch_idx + 1) % LOG_EVERY == 0:
                 window = history[-LOG_EVERY:]
                 stat = {k: sum(float(m[k]) for m in window) / LOG_EVERY for k in window[0]}
@@ -282,6 +288,9 @@ class Trainer:
                                  f"({stat['example/sec']:.2f} ex/s)")
                 step_t0 = time.time()
         return history
+
+    def _train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return step_lib.train_step(self.model, self.optimizer, batch, self.generator)
 
     def test_one_epoch(self, epoch: int):
         """Evaluate every test object: ``eval_step`` on the device, one copy

@@ -1,4 +1,6 @@
-"""Train or evaluate the flagship model with the PyTorch port.
+"""Train or evaluate a model with the PyTorch port: the flagship, or the
+SoftGroup scene family when ``--model_dict`` names it
+(``softgroup.model.softgroup``).
 
     python -m gcanet_tpu_torch.train_new [flags]          # train
     python -m gcanet_tpu_torch.train_new --eval [flags]   # evaluate the latest checkpoint
@@ -16,16 +18,13 @@ import torch
 
 from gcanet_tpu_torch.config import build_option
 from gcanet_tpu_torch.models.registry import is_scene_model
+from gcanet_tpu_torch.train.scene_trainer import SceneTrainer
 from gcanet_tpu_torch.train.trainer import Trainer
 
 
 def main(argv: list[str] | None = None, device: str | torch.device | None = None) -> int:
     cfg = build_option(argv)
-    if is_scene_model(cfg.model_dict):
-        raise NotImplementedError(f"model_dict={cfg.model_dict!r}: scene training is not "
-                                  f"ported yet; the scene family serves through "
-                                  f"serve.py::ScenePredictor (see ROADMAP.md)")
-    trainer = Trainer(cfg, device=device)
+    trainer = (SceneTrainer if is_scene_model(cfg.model_dict) else Trainer)(cfg, device=device)
     try:
         trainer.train()
     finally:

@@ -192,8 +192,10 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping | None,
     dicts of numpy arrays, -> a state_dict of the port's counterpart.
 
     Every transform is a transpose or a flip, so a gradient tree of the
-    params maps the same way onto the port's ``.grad`` tensors; pass
-    ``batch_stats=None`` to map the params alone."""
+    params maps the same way onto the port's ``.grad`` tensors (either
+    family, ``semantic_only`` included); pass ``batch_stats=None`` to map
+    the params alone, or a training step's new ``batch_stats`` to compare
+    running statistics."""
     out: dict[str, torch.Tensor] = {}
     for prefix, fpath, kind, has_bias in _rules(family, "instance_head" in params):
         if kind == BN_STATS and batch_stats is None:

@@ -1,11 +1,13 @@
 """The port's CLI (``config.build_option``, ``models/registry.py``,
 ``train_new.main``) against the JAX package's, and the entry point driven
 end to end on the CPU at a tiny size: train two epochs on synthetic data,
-then ``--eval`` the saved ``latest.tar``; a trainer on an h5 dataset list;
-resuming at the epoch of ``latest``.
+then ``--eval`` the saved ``latest.tar``, for the flagship and the scene
+family (``--model_dict softgroup.model.softgroup``); a trainer on an h5
+dataset list; resuming at the epoch of ``latest``.
 """
 
 import dataclasses
+import functools
 import json
 import os
 
@@ -19,7 +21,7 @@ from gcanet_tpu.models import registry as jregistry
 from gcanet_tpu_torch import train_new
 from gcanet_tpu_torch.config import Config, build_option
 from gcanet_tpu_torch.data.abc_dataset import ABCDataset
-from gcanet_tpu_torch.models import registry
+from gcanet_tpu_torch.models import registry, softgroup_scene
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
 from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
 from gcanet_tpu_torch.train.trainer import Trainer, prefetch_to_device
@@ -109,8 +111,29 @@ def test_main_trains_evaluates_and_reevaluates_on_cpu(tmp_path, monkeypatch):
     assert again.pop("step") == 2                 # the epoch saved with latest
     recs[1].pop("step")
     assert again == recs[1]
-    with pytest.raises(NotImplementedError, match="scene"):
-        train_new.main(argv + ["--model_dict", "softgroup.model.softgroup"], device="cpu")
+
+    # the scene family through the same entry point (SceneTrainer), its
+    # model at scene grid 8 and 8 channels
+    monkeypatch.setattr(softgroup_scene, "SoftGroupNet", functools.partial(
+        softgroup_scene.SoftGroupNet, scene_grid=8, channels=8))
+    scene_dir = tmp_path / "scene_log"
+    scene = ["--log_dir", str(scene_dir), "--data_path", str(tmp_path / "none"),
+             "--model_dict", "softgroup.model.softgroup", "--num_points", "256",
+             "--batch_size", "2", "--max_instances", "8", "--max_proposals", "8",
+             "--max_epoch", "2", "--eval_interval", "1", "--save_interval", "1"]
+    assert train_new.main(scene + ["--not_load_model"], device="cpu") == 0
+    assert {"eval0.tar", "eval1.tar", "latest.tar"} <= set(os.listdir(scene_dir / "checkpoint"))
+    recs = _test_records(scene_dir)
+    assert [r["step"] for r in recs] == [0, 1]
+    assert {"miou", "acc", "pq", "all_ap", "all_ap_50%"} <= set(recs[1])
+    latest = torch.load(scene_dir / "checkpoint" / "latest.tar", weights_only=True)
+    assert "instance_head.cls_linear.weight" in latest["model_state_dict"]
+    assert latest["metrics"] == {"miou": recs[1]["miou"], "type_miou": recs[1]["all_ap_50%"]}
+    assert train_new.main(scene + ["--eval"], device="cpu") == 0
+    again = _test_records(scene_dir)[-1]
+    assert again.pop("step") == 2
+    recs[1].pop("step")
+    assert again == recs[1]
 
 
 def test_resume_reads_the_epoch_of_latest(tmp_path):

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, and a tiny
-train step, eval step and scene forward against the CPU, on the card.
+train step, eval step, scene forward and scene train step against the CPU,
+on the card.
 
 Needs an NVIDIA GPU; skips without one.  Imports no JAX, so on a machine
 without it run it past the suite's conftest:
@@ -13,6 +14,7 @@ import torch
 from gcanet_tpu_torch.config import Config, GroupingConfig, InstanceHeadConfig
 from gcanet_tpu_torch.data.synthetic import synth_batch, synth_scene_batch
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
+from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
 from gcanet_tpu_torch.ops import cc
 from gcanet_tpu_torch.serve import ScenePredictor
 
@@ -144,3 +146,26 @@ def test_scene_card_equals_cpu(cuda, bf16):
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     assert res["proposals"] > 0 and res["kept"] > 0
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_scene_train_step_card_equals_cpu(cuda, bf16):
+    """A tiny scene train step on the card and on the CPU from the same
+    pushed weights, batch and grid shift, proposals replayed on the CPU
+    (``chip_smoke.scene_train_card_vs_cpu``: phase 15's tolerances)."""
+    import chip_smoke
+
+    cfg = chip_smoke.scene_config(1024).replace(
+        batch_size=2, scene_bf16=bf16,
+        instance_head=InstanceHeadConfig(grid_size=8, max_proposals=24))
+    model = SoftGroupNet(cfg, scene_grid=16)
+    chip_smoke.push_scene_weights(model)
+    r1 = torch.rand((2, 3), generator=torch.Generator().manual_seed(0))
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        res = chip_smoke.scene_train_card_vs_cpu(cfg, model.state_dict(),
+                                                 synth_scene_batch(cfg, 2, seed=0), r1, 16)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert res["proposals"] > 0

@@ -15,6 +15,8 @@ import importlib, pkgutil, sys
 import gcanet_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gcanet_tpu_torch.__path__, "gcanet_tpu_torch.")]
 assert "gcanet_tpu_torch.train_new" in names     # its import must not run the CLI
+assert {"gcanet_tpu_torch.train." + m for m in
+        ("scene_step", "scene_trainer", "instance_eval")} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -30,4 +32,4 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     count = int(res.stdout.split()[0])
-    assert count >= 15, res.stdout          # every module of the slice was imported
+    assert count >= 18, res.stdout          # every module of the slice was imported
