@@ -80,7 +80,34 @@ Phases (any failure ends the run with a non-zero exit):
      reproduce epoch 1's record; then the sweep timed on one of the
      training path's own class masks;
  17. ``torch.profiler`` over two full-width scene train steps: device busy
-     share, top ops, the CC kernel's share.
+     share, top ops, the CC kernel's share;
+ 18. the flagship's knobs, card against CPU (N=2048, B=2, TF32 off, top-k
+     and proposals replayed): one train step each under
+     ``precision="bf16"``, ``encoder_bf16`` + ``shared_graph`` +
+     ``edge_backward="revgather:64"``, ``mode=3`` and ``ablation``, at phase
+     7's tolerances (a bf16 trunk's losses at the bf16 tolerance, its
+     gradients by cosine); ``remat`` against no remat on the card (fp32, and
+     bf16 with ``encoder_bf16``); the reverse-gather backward against the
+     scatter backward at B=2, N=8192, K=48, C=64 with M the largest
+     in-degree, and both timed;
+ 19. the bench at full width, in-process (``gcanet_tpu_torch.bench.main``,
+     torch's default TF32 settings): the flagship (B=10, N=8192), the scene
+     family (B=8, grid 48) and the flagship with ``GCA_BENCH_ENC_BF16=1
+     GCA_BENCH_EDGE_BWD=revgather:64 GCA_BENCH_SHARED_GRAPH=1``; each line
+     checked to be the bench's one JSON line, with peak memory and the CC
+     kernel's launches per step (a batch that does not fit is replaced by
+     the largest of 8, 6, 4, 3 that does, and both are printed); a profile
+     of two flagship bench steps; then the sweep timed on the bench's own
+     N=8192 mask;
+ 20. the serving extras at full width (default ``Config``): ``predict(
+     return_masks=True, panoptic=True)`` on 3 clouds against the host
+     ``get_instances`` / ``merge_masks`` / ``panoptic_fusion`` on the card's
+     own fetched arrays, exactly; set aggregation with the ``--strict_caps``
+     absorb caps and tighter ones, card against CPU on identical inputs,
+     exactly; ``serve_http`` on 127.0.0.1 over a card ``Predictor`` with 16
+     concurrent requests in micro-batches of 4, each response equal to
+     ``Predictor.predict`` on its cloud (integers exact, floats 1e-3):
+     requests/s, p50 and p99 latency.
 Weights are random from a seed, with pushes so that the path after
 grouping does real work (``push_weights``, ``push_scene_weights``).  Each
 phase prints its seconds.
@@ -94,17 +121,21 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
+import io
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
 
-from gcanet_tpu_torch import train_new
+from gcanet_tpu_torch import bench, train_new
 from gcanet_tpu_torch.config import (Config, GroupingConfig, InstanceHeadConfig,
                                      scene_grouping_defaults)
 from gcanet_tpu_torch.data.synthetic import synth_batch, synth_clouds, synth_scene_batch
@@ -112,8 +143,10 @@ from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
 from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
 from gcanet_tpu_torch.ops import cc
 from gcanet_tpu_torch.ops import grouping as grouping_ops
+from gcanet_tpu_torch.ops import knn as knn_ops
 from gcanet_tpu_torch.ops import voxelize as vox_ops
 from gcanet_tpu_torch.serve import Predictor, ScenePredictor
+from gcanet_tpu_torch.serve_http import PredictionServer
 from gcanet_tpu_torch.train import instances as inst_utils
 from gcanet_tpu_torch.train import scene_step
 from gcanet_tpu_torch.train import step as step_lib
@@ -168,6 +201,27 @@ EVAL_REPEAT_LOSS_RTOL = 1e-5
 # CARD_VS_CPU_BF16 and its gradient by cosine, as the flagship's bf16 head.
 SCENE_MIN_COSINE = 0.9
 
+# the flagship's knobs, card against CPU (phase 18): each one train step at
+# phase 7's tolerances (``train_step_card_vs_cpu``; a bf16 trunk at the bf16
+# ones)
+KNOB_RUNS = {
+    "precision=bf16": dict(precision="bf16"),
+    "encoder_bf16+shared_graph+revgather:64": dict(encoder_bf16=True, shared_graph=True,
+                                                   edge_backward="revgather:64"),
+    "mode=3": dict(mode=3),
+    "ablation": dict(ablation=True),
+}
+# remat against no remat on the card: the same program but for the
+# recomputation (run with deterministic algorithms, so float atomics do
+# not move it)
+REMAT_LOSS_RTOL = 1e-6
+REMAT_GRAD_ATOL_SHARE = 1e-5
+# the reverse-gather backward against the scatter backward: one sum of at
+# most M rows in another order (M = the largest in-degree, up to ~100 here)
+REVGATHER = dict(rtol=1e-5, atol_share=1e-5)
+# HTTP responses against Predictor.predict on the same cloud
+HTTP_FLOAT = dict(rtol=1e-3, atol=1e-3)
+
 # ``--eval`` of a scene checkpoint against the training run's record: the
 # voxel means sum with float atomics on the card, so two evaluations of
 # one checkpoint may differ in the logits' last bits, which can move a
@@ -190,12 +244,21 @@ def hbm_rate(name: str) -> float:
 
 def push_weights(model: torch.nn.Module) -> None:
     """Random weights leave everything after grouping idle; push them so
-    proposals pass the instance thresholds: small live offsets, +10 on class
-    0's instance-class bias and on the mask MLP's last bias."""
+    proposals pass the instance thresholds: small live offsets (the offset
+    module's, or ``ablation``'s MLP's), +10 on class 0's instance-class bias
+    and on the mask MLP's last bias.  In mode 3 the normal head's output
+    bias is zeroed and its kernel scaled by 5, so its normals vary from
+    point to point (else the normal-angle features of a neighbourhood
+    nearly tie under the max over k)."""
     with torch.no_grad():
-        model.offset_pred_block.mlp_offset.weight.mul_(0.05)
+        offset = (model.offset_linear[2] if model.cfg.ablation
+                  else model.offset_pred_block.mlp_offset)
+        offset.weight.mul_(0.05)
         model.cls_linear.bias[0] += 10.0
         model.mask_linear[2].bias += 10.0
+        if model.cfg.mode == 3:
+            model.mlp_normal_prob2.bias.zero_()
+            model.mlp_normal_prob2.weight.mul_(5.0)
 
 
 def push_scene_weights(model: torch.nn.Module) -> None:
@@ -643,8 +706,7 @@ def _forward_backward(model, batch, r1):
     """The train step up to the optimizer: forward in training mode, the
     losses, and the gradients of ``total - inst_loss`` and of ``inst_loss``
     apart (the second is the only one through the instance head)."""
-    model.train()
-    out = model(batch["gt_pc"], batch["gt_normal"], r1=r1)
+    out = step_lib.train_forward(model, batch, r1=r1)
     total, ld = step_lib.compute_losses(model.cfg, out, batch)
     names, ps = zip(*model.named_parameters())
     grads = []
@@ -690,7 +752,11 @@ def train_step_card_vs_cpu(cfg: Config, state: dict, batch_np: dict, r1: torch.T
     """One train step's losses, gradients and new batch statistics on the
     card and on the CPU, from the same weights, batch and grid shift, the
     card's top-k and proposals replayed on the CPU.  Returns the worst
-    errors; raises on any that is out of tolerance."""
+    errors; raises on any that is out of tolerance.  With the trunk in bf16
+    (``precision="bf16"`` or ``encoder_bf16``) every loss is held at
+    ``CARD_VS_CPU_BF16`` and both gradients by their cosine, as the bf16
+    head's are."""
+    trunk_bf16 = cfg.precision == "bf16" or cfg.encoder_bf16
     models, batches = {}, {}
     for dev in ("cuda", "cpu"):
         models[dev] = PrimitiveNet(cfg).to(dev)
@@ -710,22 +776,23 @@ def train_step_card_vs_cpu(cfg: Config, state: dict, batch_np: dict, r1: torch.T
     for k, w in cpu[1].items():
         g = card[1][k]
         check(bool(torch.isfinite(g)), f"{k} not finite on the card")
-        tol = CARD_VS_CPU_BF16 if head_bf16 and k in ("inst_loss", "total_loss") else TRAIN_LOSS
+        tol = (CARD_VS_CPU_BF16 if trunk_bf16 or (head_bf16 and k in ("inst_loss", "total_loss"))
+               else TRAIN_LOSS)
         check(torch.allclose(g, w, **tol), f"{k}: card {float(g)} CPU {float(w)}")
         worst = max(worst, float((g - w).abs()) / max(abs(float(w)), 1e-12))
     res["loss_max_rel_err"] = worst
 
     for tag, i in (("rest", 2), ("inst", 3)):
         want, got = cpu[i], card[i]
-        if tag == "inst" and head_bf16:
+        if trunk_bf16 or (tag == "inst" and head_bf16):
             cos = _grad_cosine(want, got)
-            res["inst_grad_cosine"] = cos
-            check(cos >= TRAIN_BF16_MIN_COSINE, f"inst_loss gradient cosine {cos}")
+            res[f"{tag}_grad_cosine"] = cos
+            check(cos >= TRAIN_BF16_MIN_COSINE, f"{tag} gradient cosine {cos}")
             continue
         res[f"{tag}_grad_atol_share_needed"], res[f"{tag}_grad_max_rel_l2"] = _hold_gradients(
             "train-vs-cpu", tag, want, got, TRAIN_GRAD_ATOL_SHARE[tag])
 
-    stats_tol = CARD_VS_CPU_BF16 if head_bf16 else TRAIN_STATS
+    stats_tol = CARD_VS_CPU_BF16 if head_bf16 or trunk_bf16 else TRAIN_STATS
     card_sd, cpu_sd = models["cuda"].state_dict(), models["cpu"].state_dict()
     keys = [k for k in cpu_sd if "running" in k]
     err = 0.0
@@ -1588,6 +1655,354 @@ def phase_scene_train_profile(trainer: SceneTrainer) -> None:
              lambda: trainer.train_one_epoch(2, num_batches=2))
 
 
+def _remat_card_run(cfg: Config, state: dict, batch_np: dict, r1: torch.Tensor):
+    model = PrimitiveNet(cfg).cuda()
+    model.load_state_dict(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, ld, g_rest, g_inst = _forward_backward(model, step_lib.batch_to_device(batch_np, "cuda"),
+                                              r1.cuda())
+    return ld, g_rest, g_inst, torch.cuda.max_memory_allocated()
+
+
+def _revgather_check(card_name: str) -> None:
+    """``gather_neighbors_rev``'s backward against the scatter backward at a
+    bench-like shape: the kNN graph of B=2 random clouds of N=8192 at K=48,
+    C=64, M = the graph's largest in-degree."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, n, k, c = 2, 8192, 48, 64
+    idx = knn_ops.knn_indices(torch.rand(b, n, 3, device="cuda", generator=gen), k)
+    m = int(max(torch.bincount(idx[i].flatten(), minlength=n).max() for i in range(b)))
+    x = torch.randn(b, n, c, device="cuda", generator=gen, requires_grad=True)
+    g = torch.randn(b, n, k, c, device="cuda", generator=gen)
+
+    def backward(gather):
+        return torch.autograd.grad(gather(x, idx), x, g)[0]
+
+    want = backward(knn_ops.gather_neighbors)
+    got = backward(lambda xx, ii: knn_ops.gather_neighbors_rev(xx, ii, m))
+    scale = float(want.abs().max())
+    excess = float(((got - want).abs() - REVGATHER["rtol"] * want.abs()).max()) / scale
+    check(excess <= REVGATHER["atol_share"],
+          f"revgather backward differs from the scatter backward ({excess:.3g})")
+    times = {}
+    for name, gather in (("scatter", knn_ops.gather_neighbors),
+                         ("revgather", lambda xx, ii: knn_ops.gather_neighbors_rev(xx, ii, m))):
+        out = gather(x, idx)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for rep in range(6):                                  # one warm-up, five timed
+            if rep == 1:
+                start.record()
+            torch.autograd.grad(out, x, g, retain_graph=True)
+        end.record()
+        end.synchronize()
+        times[name] = start.elapsed_time(end) / 5
+    print(f"[knobs] gather backward B={b} N={n} K={k} C={c}, M = largest in-degree {m}: "
+          f"revgather against scatter max_abs_err {float((got - want).abs().max()):.3g} of "
+          f"max |g| {scale:.3g} (excess over rtol {REVGATHER['rtol']}: {excess:.3g} of the "
+          f"largest entry); backward ms scatter {times['scatter']:.3f}, revgather "
+          f"{times['revgather']:.3f} ({card_name})")
+
+
+def phase_knobs_card_vs_cpu(card_name: str) -> None:
+    """Phase 18: one train step under each of ``KNOB_RUNS``, card against
+    CPU (N=2048, B=2, TF32 off, top-k and proposals replayed), the head in
+    bf16 as shipped; ``remat`` against no remat on the card (fp32, and bf16
+    with ``encoder_bf16``); the reverse-gather backward against the scatter
+    backward at a bench-like shape."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = Config(num_points=2048, batch_size=2,
+                  grouping=GroupingConfig(class_numpoint_mean=(-1.0,) * 7,
+                                          similarity_threshold_inst=0.9),
+                  instance_head=InstanceHeadConfig(max_proposals=24))
+    batch = synth_batch(base, base.batch_size, seed=3)
+    r1 = torch.rand((2, 3), generator=torch.Generator().manual_seed(4))
+    for label, kw in KNOB_RUNS.items():
+        cfg = base.replace(**kw)
+        model = PrimitiveNet(cfg)
+        push_weights(model)
+        res = train_step_card_vs_cpu(cfg, model.state_dict(), batch, r1, head_bf16=True)
+        res.pop("cpu_forward")
+        print(f"[knobs-vs-cpu] {label}: "
+              + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                          for k, v in res.items()))
+
+    def differences(a, b):
+        """The largest relative loss difference and gradient difference as a
+        share of the largest entry, between two ``_remat_card_run``s."""
+        loss = max(float((b[0][k] - w).abs()) / max(abs(float(w)), 1e-12)
+                   for k, w in a[0].items())
+        grad = max(max(float((got[k] - w).abs().max()) for k, w in want.items())
+                   / max(float(w.abs().max()) for w in want.values())
+                   for want, got in ((a[1], b[1]), (a[2], b[2])))
+        return loss, grad
+
+    # float atomics (index_add_ after grouping, the gather's scatter
+    # backward) make two runs of one step differ in the last bits; the
+    # comparison runs with torch's deterministic algorithms, which have a
+    # deterministic form of each, and prints the default mode's repeat
+    # difference beside it
+    for kw in ({}, dict(precision="bf16", encoder_bf16=True)):
+        model = PrimitiveNet(base.replace(**kw))
+        push_weights(model)
+        state = model.state_dict()
+        repeat = differences(*(_remat_card_run(base.replace(**kw), state, batch, r1)
+                               for _ in range(2)))
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            plain, remat = (_remat_card_run(base.replace(remat=remat, **kw), state, batch, r1)
+                            for remat in (False, True))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        loss, grad = differences(plain, remat)
+        print(f"[knobs] remat against no remat on the card {kw or 'fp32'}, deterministic "
+              f"algorithms: losses within {loss:.3g} relative, gradients within {grad:.3g} x "
+              f"the largest entry (two runs without remat, default algorithms: {repeat[0]:.3g}, "
+              f"{repeat[1]:.3g}); peak memory {plain[3] / 2**30:.2f} -> {remat[3] / 2**30:.2f} "
+              f"GiB (N=2048, B=2)")
+        check(loss <= REMAT_LOSS_RTOL and grad <= REMAT_GRAD_ATOL_SHARE,
+              f"remat moves a loss by {loss:.3g} or a gradient by {grad:.3g}")
+    _revgather_check(card_name)
+
+
+@contextlib.contextmanager
+def bench_env(**env: str):
+    """``os.environ`` with the given ``GCA_BENCH_*`` knobs, restored after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _bench_line(label: str, smi: str, **env: str) -> tuple[dict, int]:
+    """One in-process ``bench.main`` run at full width: its JSON line, peak
+    memory and the CC kernel's launches per step (warm-up included).  If the
+    batch does not fit in the card's memory, the largest of 8, 6, 4, 3 that
+    does is run, and both are printed."""
+    batch = int(env.get("GCA_BENCH_BATCH", "8" if env.get("GCA_BENCH_FAMILY") == "scene"
+                        else "10"))
+    tried = []
+    while True:
+        with bench_env(**env, GCA_BENCH_BATCH=str(batch)):
+            _reset_launches()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            out = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(out):
+                    row = bench.main([])
+            except torch.cuda.OutOfMemoryError as e:
+                tried.append(batch)
+                print(f"[bench] {label}: B={batch} does not fit: {str(e).splitlines()[0]}")
+                smaller = [b for b in (8, 6, 4, 3) if b < batch]
+                check(bool(smaller), f"{label}: no batch fits")
+                batch = smaller[0]
+                continue
+        break
+    lines = out.getvalue().splitlines()
+    check(len(lines) == 1 and json.loads(lines[0]) == row,
+          f"{label}: the bench printed {lines}, not one JSON line")
+    steps = int(os.environ.get("GCA_BENCH_ITERS", "10")) + 1
+    launches = _launches()["masked_min_sweep"]
+    peak = torch.cuda.max_memory_allocated()
+    check(launches > 0, f"masked_min_sweep was not launched by the bench ({label})")
+    check(row["value"] > 0, f"{label}: {row}")
+    print(f"[bench] {label}: B={batch}{f' (did not fit: {tried})' if tried else ''} "
+          f"{json.dumps(row)}; {1e3 * batch / row['value']:.1f} ms/step, peak memory "
+          f"{peak / 2**30:.2f} GiB, masked_min_sweep {launches / steps:.1f} launches per step "
+          f"({launches / (steps * batch):.1f} sweeps per cloud) ({smi})")
+    return row, launches
+
+
+def phase_bench(card_name: str, smi: str) -> dict:
+    """Phase 19: ``gcanet_tpu_torch.bench.main`` at full width, in-process,
+    torch's default TF32 settings: the flagship (B=10, N=8192), the scene
+    family (B=8, grid 48), the flagship with ``GCA_BENCH_ENC_BF16=1
+    GCA_BENCH_EDGE_BWD=revgather:64 GCA_BENCH_SHARED_GRAPH=1``; a profile of
+    two flagship bench steps; then the sweep timed on the bench's own N=8192
+    mask (cloud 0's gated mask)."""
+    torch.backends.cuda.matmul.allow_tf32 = False          # torch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    launches = {}
+    for label, env in (("flagship", {}), ("scene", {"GCA_BENCH_FAMILY": "scene"}),
+                       ("flagship knobs", {"GCA_BENCH_ENC_BF16": "1",
+                                           "GCA_BENCH_EDGE_BWD": "revgather:64",
+                                           "GCA_BENCH_SHARED_GRAPH": "1"})):
+        launches[label] = _bench_line(label, smi, **env)[1]
+
+    cfg, model, optimizer, batch, step, _ = bench.build("abc", torch.device("cuda"))
+    generator = torch.Generator(device="cuda").manual_seed(1)
+    step(model, optimizer, batch, generator)                       # warm-up
+    _profile(f"2 bench steps (B={cfg.batch_size}, N={cfg.num_points}, forward + backward "
+             f"+ Adam)", lambda: [step(model, optimizer, batch, generator) for _ in range(2)])
+    with torch.inference_mode():
+        out = model.eval()(batch["gt_pc"][:1], batch["gt_normal"][:1])
+    n = cfg.num_points
+    shifted = (batch["gt_pc"][0] + out.pt_offsets).float()
+    nbr, _ = grouping_ops.gated_neighbor_mask(
+        shifted, out.semantic_scores.argmax(-1).to(torch.int32), out.embedding[0].float(),
+        out.param_per_point[0].float(), cfg.num_primitives, cfg.grouping)
+    labels = torch.arange(n, dtype=torch.int32, device="cuda")
+    check(torch.equal(cc.masked_min_sweep(nbr, labels), cc.masked_min_sweep_plain(nbr, labels)),
+          "sweep on the bench's mask")
+    ms = time_graph(lambda: cc.masked_min_sweep(nbr, labels), 100)
+    plain_ms = time_graph(lambda: cc.masked_min_sweep_plain(nbr, labels), 10)
+    bound_ms = (n * n + 8 * n) / hbm_rate(card_name) * 1e3
+    print(f"[kernel] masked_min_sweep on the bench's N={n} mask ({int(nbr.sum())} edges): "
+          f"{ms * 1e3:.2f} us/sweep, plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} "
+          f"us, {bound_ms / ms:.1%} of the bound ({smi})")
+    return {"launches": launches,
+            "mask": {"n": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}}
+
+
+def _post_json(url: str, body: bytes) -> tuple[int, dict, float]:
+    req = urllib.request.Request(url, data=body, method="POST",
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.status, json.loads(r.read()), time.perf_counter() - t0
+
+
+def _http_matches_predict(got: dict, want: dict) -> bool:
+    """A JSON response against ``Predictor.predict``'s dict: types, labels
+    and instances exactly, ``conf`` at ``HTTP_FLOAT``."""
+    return (got["types"] == want["type_per_point"].argmax(-1).tolist()
+            and got["instance_labels"] == want["instance_labels"].tolist()
+            and [(i["label_id"], i["npoint"], i["pred_mask"]) for i in got["instances"]]
+            == [(i["label_id"], i["npoint"], i["pred_mask"]) for i in want["instances"]]
+            and np.allclose([i["conf"] for i in got["instances"]],
+                            [i["conf"] for i in want["instances"]], **HTTP_FLOAT))
+
+
+def phase_serving_extras(smi: str) -> dict:
+    """Phase 20: the serving extras at full width (default ``Config``,
+    N=7000, pushed weights): ``predict(return_masks=True, panoptic=True)`` on
+    3 clouds, whose instances, labels and panoptic labels must equal the
+    host ``get_instances`` / ``merge_masks`` / ``panoptic_fusion`` on the
+    card's own fetched arrays; ``--strict_caps`` grouping (and tighter caps)
+    with set aggregation, card against CPU on identical inputs, exactly;
+    ``serve_http`` on 127.0.0.1 over a card ``Predictor`` (B=4, a proposal
+    cap no micro-batch reaches), 16 concurrent requests, each response
+    equal to ``Predictor.predict`` on its cloud.  Returns the CC kernel's
+    launches of the masks path and of the HTTP requests."""
+    cfg = Config()
+    n, clouds = cfg.num_points, 3
+    pred = Predictor(cfg, device="cuda")
+    push_weights(pred.model)
+    xyz, nrm = synth_clouds(cfg, 16, seed=8)
+    pred.predict(xyz[0], nrm[0], return_masks=True)               # warm-up
+    fetched, real = [], pred._forward_masks
+    pred._forward_masks = lambda a, b: fetched.append(real(a, b)) or fetched[-1]
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = [pred.predict(xyz[i], nrm[i], return_masks=True, panoptic=True)
+               for i in range(clouds)]
+    t_masks = (time.perf_counter() - t0) / clouds
+    masks_launches = _launches()["masked_min_sweep"]
+    del pred._forward_masks
+    check(masks_launches > 0, "masked_min_sweep was not launched on the masks path")
+    for res, (pid, sem, cls_s, iou_s, mask_s, valid, tpp, _, _, _) in zip(results, fetched):
+        want = inst_utils.get_instances(pid, sem, cls_s, iou_s, mask_s, valid,
+                                        cfg.num_primitives)
+        check(res["instances"] == want, "return_masks instances differ from get_instances")
+        merged = inst_utils.merge_masks(want) if want else np.zeros(n, np.int32)
+        check(np.array_equal(res["instance_labels"], merged), "return_masks labels")
+        check(np.array_equal(res["panoptic"], inst_utils.panoptic_fusion(
+            tpp.argmax(-1), want, cfg.num_primitives)), "panoptic labels")
+    kept = [len(r["instances"]) for r in results]
+    check(all(k > 0 for k in kept), f"the masks path kept no instance: {kept}")
+    print(f"[extras] predict(return_masks=True, panoptic=True) N={n}: {t_masks * 1e3:.1f} "
+          f"ms per cloud, instances {kept} (overlapping RLE masks; equal to the host "
+          f"get_instances / merge_masks / panoptic_fusion on the fetched arrays), "
+          f"masked_min_sweep {masks_launches} launches ({smi})")
+
+    # set aggregation with the absorb caps: card against CPU on identical inputs
+    with torch.inference_mode():
+        out = pred.model(torch.as_tensor(xyz[:2], device="cuda"),
+                         torch.as_tensor(nrm[:2], device="cuda"))
+        g_cpu = tuple(t.cpu() for t in _model_inputs_to_grouping(
+            out, torch.as_tensor(xyz[:2], device="cuda")))
+    absorbed = {}
+    for label, caps in (("uncapped", {}),
+                        ("strict_caps", dict(neighbor_cap=3000, absorb_fragment_cap=1000,
+                                             absorb_point_cap=3000)),
+                        ("tight caps", dict(absorb_fragment_cap=2, absorb_point_cap=50))):
+        # the mean table at the synthetic clouds' scale (N/5), so primaries
+        # exist below the proposal cap and fragments are absorbed
+        kw = dict(num_classes=cfg.num_primitives, max_proposals=cfg.instance_head.max_proposals,
+                  using_set_aggr=True, cfg=dataclasses.replace(
+                      cfg.grouping, class_numpoint_mean=(n / 5.0,) * 10, **caps))
+        props_cpu = grouping_ops.build_proposals(*g_cpu, **kw)
+        props_card = grouping_ops.build_proposals(*(t.cuda() for t in g_cpu), **kw)
+        for field in props_cpu._fields:
+            check(torch.equal(getattr(props_card, field).cpu(), getattr(props_cpu, field)),
+                  f"{label} proposals.{field} differ between card and CPU")
+        absorbed[label] = int((props_cpu.point_pid[1] >= 0).sum())
+    print(f"[extras] set aggregation with absorb caps, card = CPU exactly on identical "
+          f"inputs (B=2, N={n}, mean table N/5); absorbed points {absorbed}")
+    check(0 < absorbed["tight caps"] < absorbed["uncapped"],
+          f"the absorb caps did not bite: {absorbed}")
+
+    # serve_http: 16 concurrent requests over a card Predictor, micro-batches
+    # of 4.  A batch's clouds share its proposal cap, so a cloud's result
+    # depends on the clouds batched with it once the cap binds; the server
+    # here gets a cap that 4 of these clouds cannot reach (4 times the most
+    # proposals one of them makes uncapped), and each response must equal
+    # Predictor.predict of its cloud at that cap.
+    with torch.inference_mode():
+        nums = []
+        for i in range(16):
+            xi = torch.as_tensor(xyz[i:i + 1], device="cuda")
+            oi = pred.model(xi, torch.as_tensor(nrm[i:i + 1], device="cuda"))
+            nums.append(int(grouping_ops.build_proposals(
+                *_model_inputs_to_grouping(oi, xi), cfg.num_primitives, cfg.grouping,
+                max_proposals=n).num))
+    http_cfg = cfg.replace(batch_size=4, instance_head=dataclasses.replace(
+        cfg.instance_head, max_proposals=4 * max(nums)))
+    srv = PredictionServer(http_cfg, pred.model.state_dict(), family="abc", max_wait_ms=15.0,
+                           device="cuda")
+    want = [srv.predictor.predict(xyz[i], nrm[i]) for i in range(16)]
+    ready = threading.Event()
+    thread = threading.Thread(target=srv.serve, kwargs=dict(host="127.0.0.1", port=0,
+                                                            ready_event=ready), daemon=True)
+    thread.start()
+    try:
+        check(ready.wait(60), "the HTTP server did not start")
+        url = f"http://127.0.0.1:{srv.server_address[1]}/v1/predict"
+        bodies = [json.dumps({"xyz": xyz[i].tolist(), "normals": nrm[i].tolist()}).encode()
+                  for i in range(16)]
+        _post_json(url, bodies[0])                                  # warm-up
+        _reset_launches()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(16) as pool:
+            answers = list(pool.map(lambda body: _post_json(url, body), bodies))
+        wall = time.perf_counter() - t0
+        http_launches = _launches()["masked_min_sweep"]
+    finally:
+        srv.shutdown()
+        thread.join(60)
+    check(not thread.is_alive(), "the HTTP server did not stop")
+    check(http_launches > 0, "masked_min_sweep was not launched by the HTTP requests")
+    same = [status == 200 and _http_matches_predict(body, w)
+            for (status, body, _), w in zip(answers, want)]
+    lat = sorted(t for _, _, t in answers)
+    print(f"[extras] serve_http, 16 concurrent requests, N={n}, micro-batches of 4 (uncapped "
+          f"proposals per cloud {nums}, cap {http_cfg.instance_head.max_proposals} per batch): "
+          f"{16 / wall:.2f} requests/s, latency p50 {lat[7] * 1e3:.1f} ms, p99 "
+          f"{lat[-1] * 1e3:.1f} ms; responses equal to Predictor.predict: {sum(same)} of 16; "
+          f"masked_min_sweep {http_launches} launches ({smi})")
+    check(all(same), f"HTTP responses differ from Predictor.predict: {same}")
+    return {"serve_masks": masks_launches, "serve_http": http_launches}
+
+
 def run_phase(number: int, fn, *args):
     """``fn(*args)``, its host-clock seconds printed."""
     t0 = time.perf_counter()
@@ -1626,13 +2041,19 @@ def main() -> int:
             run_phase(17, phase_scene_train_profile, trainer)
         finally:
             trainer.close()
+    run_phase(18, phase_knobs_card_vs_cpu, card_name)
+    bench_res = run_phase(19, phase_bench, card_name, smi)
+    extras = run_phase(20, phase_serving_extras, smi)
     row = kernel_rows[0]
     scene_train_mask = scene_train.pop("mask")
     row["launches_by_path"] = {"serve": row["launches"], "train": train_launches,
-                               **cli_launches, "scene_serve": scene["launches"], **scene_train}
+                               **cli_launches, "scene_serve": scene["launches"], **scene_train,
+                               **{f"bench {k}": v for k, v in bench_res["launches"].items()},
+                               **extras}
     row["launches"] = sum(row["launches_by_path"].values())
     row["scene_mask"] = {k: scene[k] for k in ("n", "ms", "plain_ms", "bound_ms")}
     row["scene_train_mask"] = scene_train_mask
+    row["bench_mask"] = bench_res["mask"]
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

@@ -1,0 +1,125 @@
+"""Train-step throughput of the port on one device (port of the root
+``bench.py``).
+
+    python -m gcanet_tpu_torch.bench [--device cpu]
+
+Prints ONE JSON line: ``{"metric", "value", "unit", "vs_baseline"}``, the
+metric named as the JAX bench names it (``train_clouds_per_sec_per_chip_8k_pts``,
+or ``scene_train_clouds_per_sec_per_chip_8k_pts`` with
+``GCA_BENCH_FAMILY=scene``).  The workload is ``config.py::bench_config``
+(``GCA_BENCH_*``; flagship B=10, N=8192, ``max_instances`` 48); the scene
+family runs at B=8 unless ``GCA_BENCH_BATCH`` says otherwise, on the
+scannetv2 grouping recipe with the mean table at ``N/5``, scene grid
+``GCA_BENCH_SCENE_GRID`` (48), the U-Net in bf16 unless
+``GCA_BENCH_SCENE_BF16=0``, recomputed with ``GCA_BENCH_SCENE_REMAT=1``.
+The model and Adam are built from the seed, one fixed synthetic batch
+(seed 0) is made, one warm-up step is taken, then ``GCA_BENCH_ITERS`` (10)
+steps are timed: with CUDA events on a card, the host clock on the CPU.
+
+``vs_baseline`` divides by the JAX bench's documented estimate of the
+reference: 5.0 clouds/s (batch 3 at 7000 points on an A100).  The JAX
+bench's ``mfu`` and ``hbm_util`` came from XLA's cost model and TPU peaks
+and are not reported.  It runs on the card; ``--device cpu`` (or
+``main(device="cpu")``) runs it on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import torch
+
+from gcanet_tpu_torch.config import bench_config, scene_grouping_defaults
+from gcanet_tpu_torch.data.synthetic import synth_batch, synth_scene_batch
+from gcanet_tpu_torch.train import scene_step
+from gcanet_tpu_torch.train import step as step_lib
+
+REFERENCE_CLOUDS_PER_SEC = 5.0
+
+
+def _device(device: str | torch.device | None) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the bench runs on cuda by default and no CUDA device is "
+                           "available; pass --device cpu to run it on the CPU")
+    return dev
+
+
+def build(family: str, device: torch.device):
+    """``(cfg, model, optimizer, batch, step, metric)`` of the bench workload:
+    the model and Adam from the seed, one synthetic batch (seed 0) on
+    ``device``, and ``step(model, optimizer, batch, generator)``."""
+    cfg = bench_config()
+    if str(cfg.mesh_shape) not in ("1", ""):
+        raise NotImplementedError(f"GCA_BENCH_MESH={cfg.mesh_shape}: the data-parallel "
+                                  "bench is not ported yet (ROADMAP.md Queue 1, data "
+                                  "parallelism)")
+    env = os.environ
+    if family == "scene":
+        from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
+
+        cfg = cfg.replace(grouping=scene_grouping_defaults(
+            cfg.grouping, class_numpoint_mean=(cfg.num_points / 5.0,) * 10))
+        if "GCA_BENCH_BATCH" not in env:
+            cfg = cfg.replace(batch_size=8)
+        model = SoftGroupNet(
+            cfg, scene_grid=int(env.get("GCA_BENCH_SCENE_GRID", "48")),
+            compute_bf16=bool(int(env.get("GCA_BENCH_SCENE_BF16", str(int(cfg.scene_bf16))))),
+            remat=bool(int(env.get("GCA_BENCH_SCENE_REMAT", "0"))))
+        raw = synth_scene_batch(cfg, cfg.batch_size, seed=0)
+        step, metric = scene_step.scene_train_step, "scene_train_clouds_per_sec_per_chip_8k_pts"
+    elif family == "abc":
+        from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
+
+        model = PrimitiveNet(cfg)
+        raw = synth_batch(cfg, cfg.batch_size, seed=0)
+        step, metric = step_lib.train_step, "train_clouds_per_sec_per_chip_8k_pts"
+    else:
+        raise ValueError(f"GCA_BENCH_FAMILY={family!r}; 'abc' or 'scene'")
+    model.to(device)
+    optimizer = step_lib.make_optimizer(cfg, model.parameters())
+    batch = step_lib.batch_to_device({k: v for k, v in raw.items() if k != "index"}, device)
+    return cfg, model, optimizer, batch, step, metric
+
+
+def main(argv: list[str] | None = None, device: str | torch.device | None = None) -> dict:
+    """Run the bench and print its JSON line; returns the line's dict."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+    dev = _device(device if device is not None else args.device)
+    family = os.environ.get("GCA_BENCH_FAMILY", "abc")
+    cfg, model, optimizer, batch, step, metric = build(family, dev)
+    generator = torch.Generator(device=dev).manual_seed(1)
+    n_iters = int(os.environ.get("GCA_BENCH_ITERS", "10"))
+
+    metrics = step(model, optimizer, batch, generator)           # warm-up
+    float(metrics["total_loss"])
+    if dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n_iters):
+            metrics = step(model, optimizer, batch, generator)
+        end.record()
+        end.synchronize()
+        seconds = start.elapsed_time(end) / 1e3
+    else:
+        t0 = time.perf_counter()
+        for _ in range(n_iters):
+            metrics = step(model, optimizer, batch, generator)
+        seconds = time.perf_counter() - t0
+    if not torch.isfinite(metrics["total_loss"]):
+        raise RuntimeError(f"the bench's last total_loss is {float(metrics['total_loss'])}")
+    clouds_per_sec = cfg.batch_size * n_iters / seconds
+    row = {"metric": metric, "value": round(clouds_per_sec, 3), "unit": "clouds/s",
+           "vs_baseline": round(clouds_per_sec / REFERENCE_CLOUDS_PER_SEC, 3)}
+    print(json.dumps(row))
+    return row
+
+
+if __name__ == "__main__":
+    main()

@@ -7,12 +7,15 @@ the same config in both packages.  ``check_supported`` and
 ``check_trainable`` refuse the values whose code paths are not ported yet
 (each with ``scene=True`` for the SoftGroup scene family);
 the CLI parses them and leaves the refusal to the entry points.
+``bench_config`` reads the bench workload from the ``GCA_BENCH_*``
+environment knobs, as the JAX package's does.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from typing import Tuple
 
 
@@ -40,8 +43,11 @@ class GroupingConfig:
     absorb_fragment_cap: int = 0
     absorb_point_cap: int = 0
     cc_max_iters: int = 64            # label-propagation budget for connected components
-    # accepted for config compatibility; the port has one CC implementation
-    # (ops/cc.py) and one per-item loop
+    # Deliberate difference: the JAX package selects its CC sweep ("auto",
+    # "pallas", "xla") and maps or vmaps the per-item grouping ("map",
+    # "vmap"); each choice computes the same labels.  The port accepts every
+    # value and always runs the CUDA sweep (ops/cc.py) over the items in
+    # turn on a card, never a plain version there.
     cc_impl: str = "auto"
     item_batch_mode: str = "map"
 
@@ -82,7 +88,7 @@ class Config:
 
     # --- data parameters ---
     num_primitives: int = 7
-    mode: int = 5                     # 5: xyz+normal input (the port's only mode)
+    mode: int = 5                     # 5: xyz+normal input; 0: xyz; 3: xyz + a normal head
     ablation: bool = False
     using_set_aggr: bool = False
     model_dict: str = "models.dgcnn-hais-concat-direct-4"
@@ -145,8 +151,7 @@ class Config:
     # top-k in the port, the same as "xla" (ops/knn.py)
     knn_impl: str = "approx"
     encoder_bf16: bool = False
-    # backward knobs: serving ignores them; training refuses all but the
-    # defaults (check_trainable)
+    # backward knobs: serving ignores them
     remat: bool = False
     edge_backward: str = "scatter"
     shared_graph: bool = False
@@ -187,40 +192,62 @@ def _refuse(unported: dict[str, bool], what: str) -> None:
 
 
 def check_supported(cfg: Config, scene: bool = False) -> None:
-    """Raise on config values whose model code paths are not ported yet: the
-    flagship's knobs for ``PrimitiveNet``; for ``SoftGroupNet``
+    """Raise on config values whose model code paths are not ported yet:
+    ``offset_variant="dual"`` for ``PrimitiveNet``; for ``SoftGroupNet``
     (``scene=True``) the scene knobs must each be 0 or 1."""
     if scene:
         for name in ("scene_bf16", "semantic_only", "x4_split", "scene_soft_grouping"):
             if getattr(cfg, name) not in (0, 1):
                 raise ValueError(f"{name} must be 0 or 1, got {getattr(cfg, name)!r}")
         return
-    _refuse({
-        "mode": cfg.mode != 5,
-        "ablation": cfg.ablation,
-        "offset_variant": cfg.offset_variant != "kpam",
-        "encoder_bf16": cfg.encoder_bf16,
-        "shared_graph": cfg.shared_graph,
-    }, "model option")
+    _refuse({"offset_variant": cfg.offset_variant != "kpam"}, "model option")
 
 
 def check_trainable(cfg: Config, scene: bool = False) -> None:
-    """Raise on config values the training path does not honour yet: the
-    recomputing backward (``remat``), the reverse-gather backward
-    (``edge_backward="revgather:M"``), the bf16 step cast
-    (``precision="bf16"``) and data parallelism (``mesh_shape`` > 1).  The
-    scene step (``scene=True``) reads none of the first three, as in the
-    JAX package, and refuses only ``mesh_shape`` > 1."""
+    """Raise on config values the training path does not honour yet: data
+    parallelism (``mesh_shape`` > 1) for either family (``scene=True`` for
+    the SoftGroup scene family), and what ``check_supported`` refuses."""
     check_supported(cfg, scene=scene)
-    if scene:
-        _refuse({"mesh_shape": str(cfg.mesh_shape) not in ("1", "")}, "training option")
-        return
-    _refuse({
-        "remat": cfg.remat,
-        "edge_backward": cfg.edge_backward != "scatter",
-        "precision": cfg.precision != "fp32",
-        "mesh_shape": str(cfg.mesh_shape) not in ("1", ""),
-    }, "training option")
+    _refuse({"mesh_shape": str(cfg.mesh_shape) not in ("1", "")}, "training option")
+
+
+def bench_config() -> Config:
+    """The bench workload (``gcanet_tpu/config.py::bench_config``), from the
+    same ``GCA_BENCH_*`` knobs with the same defaults: ``GCA_BENCH_BATCH``
+    (10), ``GCA_BENCH_POINTS`` (8192), ``GCA_BENCH_PROPOSALS`` (0 = the
+    ``InstanceHeadConfig`` default), ``GCA_BENCH_ENC_BF16`` (0),
+    ``GCA_BENCH_NN`` (0 = the ``Config`` default), ``GCA_BENCH_MESH`` (1),
+    ``GCA_BENCH_GROUP_VMAP`` (0), ``GCA_BENCH_EDGE_BWD`` (scatter |
+    revgather:M), ``GCA_BENCH_SHARED_GRAPH`` (0), ``GCA_BENCH_NN_INNER``
+    (unset = the ``Config`` default), ``GCA_BENCH_CC_PALLAS`` (unset = auto;
+    1 = pallas, 0 = xla), ``GCA_BENCH_KNN`` (unset = the ``Config``
+    default), ``GCA_BENCH_SCENE_SOFT`` (1).  ``max_instances`` is 48."""
+    env = os.environ
+    props = int(env.get("GCA_BENCH_PROPOSALS", "0"))
+    nn_nb = int(env.get("GCA_BENCH_NN", "0"))
+    cc_impl = {"1": "pallas", "0": "xla"}.get(env.get("GCA_BENCH_CC_PALLAS", ""), "auto")
+    kw = {}
+    if nn_nb:
+        kw["nn_nb"] = nn_nb
+    if "GCA_BENCH_NN_INNER" in env:
+        kw["nn_nb_inner"] = int(env["GCA_BENCH_NN_INNER"])
+    if "GCA_BENCH_KNN" in env:
+        kw["knn_impl"] = env["GCA_BENCH_KNN"]
+    return Config(
+        num_points=int(env.get("GCA_BENCH_POINTS", "8192")),
+        batch_size=int(env.get("GCA_BENCH_BATCH", "10")),
+        max_instances=48,
+        encoder_bf16=bool(int(env.get("GCA_BENCH_ENC_BF16", "0"))),
+        edge_backward=env.get("GCA_BENCH_EDGE_BWD", "scatter"),
+        shared_graph=bool(int(env.get("GCA_BENCH_SHARED_GRAPH", "0"))),
+        mesh_shape=env.get("GCA_BENCH_MESH", "1"),
+        scene_soft_grouping=bool(int(env.get("GCA_BENCH_SCENE_SOFT", "1"))),
+        grouping=GroupingConfig(
+            item_batch_mode="vmap" if int(env.get("GCA_BENCH_GROUP_VMAP", "0")) else "map",
+            cc_impl=cc_impl),
+        instance_head=(InstanceHeadConfig(max_proposals=props) if props
+                       else InstanceHeadConfig()),
+        **kw)
 
 
 def _add_args(parser: argparse.ArgumentParser) -> None:

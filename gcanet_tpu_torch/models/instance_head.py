@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gcanet_tpu_torch.models.layers import MLP, MaskedBatchNorm
+from gcanet_tpu_torch.models.layers import MLP, Dense, MaskedBatchNorm
 
 
 class SubMConv3d(nn.Conv3d):
@@ -130,8 +130,8 @@ class InstanceHead(nn.Module):
         self.tiny_unet = TinyUNet(channels)
         self.tiny_unet_outputlayer = nn.ModuleList([MaskedBatchNorm(channels), nn.ReLU()])
         self.mask_linear = MLP(channels, num_classes, hidden_features=channels)
-        self.cls_linear = nn.Linear(channels, num_classes)
-        self.iou_score_linear = nn.Linear(channels, num_classes)
+        self.cls_linear = Dense(channels, num_classes)
+        self.iou_score_linear = Dense(channels, num_classes)
 
     def forward(self, vox_feats: torch.Tensor, active: torch.Tensor,
                 entry_voxel: torch.Tensor, point_pid: torch.Tensor) -> InstanceHeadOutput:

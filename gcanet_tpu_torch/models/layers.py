@@ -4,22 +4,75 @@ The JAX package wraps Dense + GroupNorm into ``ConvGNAct`` / ``DenseGN``
 modules.  Here the linear layer and the norm are separate attributes of the
 owning module, named after the reference's state_dict keys (``conv1.0`` and
 ``bn1`` are siblings there), and ``conv_gn_act`` / ``dense_gn`` apply them.
+
+Dtypes follow flax: a ``Dense`` computes in the promotion of its input's
+and its weight's dtypes unless given one, so the model runs on bf16 copies
+of its weights (``precision="bf16"``), and ``GroupNorm`` takes its
+statistics in fp32 and returns its input's dtype.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Mapping
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=0.2)
 
 
-def conv_gn_act(conv: nn.Module, gn: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """1x1 conv (no bias) + GroupNorm + LeakyReLU(0.2), the DGCNN conv block."""
-    return leaky_relu(gn(conv(x)))
+class _Bound(nn.Module):
+    """The modules a function reads, under one parent, so that
+    ``functional_call`` can bind their parameters for one call."""
+
+    def __init__(self, fn: Callable, modules: Mapping[str, nn.Module]):
+        super().__init__()
+        self.fn = (fn,)              # in a tuple: a module is not registered twice
+        self.mods = nn.ModuleDict(dict(modules))
+
+    def forward(self, *args):
+        return self.fn[0](*args)
+
+
+def remat(fn: Callable, modules: Mapping[str, nn.Module], *args: torch.Tensor):
+    """``fn(*args)`` whose activations are recomputed in the backward
+    (``torch.utils.checkpoint``, flax's ``remat``).  The parameters of
+    ``modules`` (those ``fn`` reads) are taken as they are bound now (the
+    bf16 copies of a ``precision="bf16"`` step) and bound again for the
+    recomputation, which runs after the step's forward has returned."""
+    bound = _Bound(fn, modules)
+    names, params = zip(*bound.named_parameters())
+    k = len(names)
+
+    def run(*flat):
+        return torch.func.functional_call(bound, dict(zip(names, flat[:k])), flat[k:])
+
+    return checkpoint(run, *params, *args, use_reentrant=False)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with flax ``Dense``'s dtypes: input, weight and bias are
+    cast to ``dtype``, by default the promotion of the input's and the
+    weight's dtypes (fp32 input and fp32 weight: plain ``nn.Linear``)."""
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        dt = dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def conv_gn_act(conv: nn.Module, gn: nn.Module, x: torch.Tensor,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+    """1x1 conv (no bias) + GroupNorm + LeakyReLU(0.2), the DGCNN conv block;
+    ``dtype`` (bf16) runs it in that dtype, GroupNorm statistics in fp32
+    (flax ``ConvGNAct(dtype=...)``).  ``conv`` is a ``Dense`` or a
+    ``Sequential`` holding one."""
+    dense = conv[0] if isinstance(conv, nn.Sequential) else conv
+    return leaky_relu(gn(dense(x, dtype)))
 
 
 def dense_gn(dense: nn.Module, gn: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -29,7 +82,9 @@ def dense_gn(dense: nn.Module, gn: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 class GroupNorm(nn.Module):
     """GroupNorm over channels-last ``[B, ..., C]``: per sample, statistics
-    over every non-batch position x C/G (flax ``GroupNorm`` semantics)."""
+    over every non-batch position x C/G (flax ``GroupNorm`` semantics).  A
+    half-precision input is normalised in fp32 and the result cast back, as
+    flax does."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
         super().__init__()
@@ -42,12 +97,12 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c = x.shape[0], x.shape[-1]
-        xg = x.reshape(b, -1, self.num_groups, c // self.num_groups)
+        xg = x.float().reshape(b, -1, self.num_groups, c // self.num_groups)
         mean = xg.mean(dim=(1, 3), keepdim=True)
         centered = xg - mean
         var = centered.square().mean(dim=(1, 3), keepdim=True)
         y = (centered * torch.rsqrt(var + self.eps)).reshape(x.shape)
-        return y * self.weight + self.bias
+        return (y * self.weight + self.bias).to(x.dtype)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -107,8 +162,8 @@ class MLP(nn.Sequential):
     no norm); children 0 and 2 are the linears, as in the reference's keys."""
 
     def __init__(self, in_features: int, out_features: int, hidden_features: int):
-        super().__init__(nn.Linear(in_features, hidden_features), nn.ReLU(),
-                         nn.Linear(hidden_features, out_features))
+        super().__init__(Dense(in_features, hidden_features), nn.ReLU(),
+                         Dense(hidden_features, out_features))
 
 
 def init_lecun_normal_(module: nn.Module, generator: torch.Generator) -> None:

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from gcanet_tpu_torch.models.layers import GroupNorm, conv_gn_act
+from gcanet_tpu_torch.models.layers import Dense, GroupNorm, conv_gn_act
 from gcanet_tpu_torch.ops.mathutil import safe_norm
 
 
@@ -31,8 +31,8 @@ class KPAM(nn.Module):
 
     def __init__(self, k: int):
         super().__init__()
-        self.conv1 = nn.Sequential(nn.Linear(k, k, bias=False), nn.ReLU(),
-                                   nn.Linear(k, k, bias=False))
+        self.conv1 = nn.Sequential(Dense(k, k, bias=False), nn.ReLU(),
+                                   Dense(k, k, bias=False))
 
     def forward(self, x: torch.Tensor, attention_feature: torch.Tensor) -> torch.Tensor:
         # x [B, N, K, C]; attention_feature [B, N, K]
@@ -48,10 +48,10 @@ class OffsetPredModule(nn.Module):
         super().__init__()
         self.nn_nb = nn_nb
         self.sampling_ratio = sampling_ratio
-        self.conv1 = nn.Sequential(nn.Linear(feature_dim + 3, 128, bias=False))
+        self.conv1 = nn.Sequential(Dense(feature_dim + 3, 128, bias=False))
         self.bn1 = GroupNorm(2, 128)
         self.attention = KPAM(nn_nb)
-        self.mlp_offset = nn.Linear(128 + feature_dim, 3)
+        self.mlp_offset = Dense(128 + feature_dim, 3)
 
     def forward(self, points: torch.Tensor, feature: torch.Tensor,
                 instance_feature: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,16 @@ Encoder + heads + offset module + grouping + voxelisation + instance head.
 ``model.train()`` selects the training path (``train=True`` in the JAX
 package): batch statistics in the instance head's norms, random grid
 shifts in the voxelisation, no set aggregation.
+
+``cfg.mode`` 5 takes xyz and normals; 0 and 3 take xyz only, and 3 adds a
+normal head whose output feeds the embedding head's normal-angle feature.
+``cfg.ablation`` replaces the offset module by an MLP, ``cfg.encoder_bf16``
+runs the encoder's and the embedding head's edge tensors in bf16, and
+``cfg.remat`` recomputes the encoder's blocks, the embedding head's conv
+block and the offset module in the backward.  Under ``precision="bf16"``
+the step calls the model on bf16 copies of its weights and inputs
+(``train/step.py``); the dtypes then follow the JAX package's.
+
 Every parameterised submodule is named after its key in the reference's
 ``model_state_dict`` (without the ``affinitynet.`` prefix), so a reference
 checkpoint or a JAX parameter tree maps onto it key by key
@@ -22,8 +32,8 @@ from torch import nn
 from gcanet_tpu_torch.config import Config, check_supported
 from gcanet_tpu_torch.models.dgcnn import DGCNNEncoderGn
 from gcanet_tpu_torch.models.instance_head import InstanceHead, InstanceHeadOutput
-from gcanet_tpu_torch.models.layers import (GroupNorm, conv_gn_act, dense_gn,
-                                            init_lecun_normal_)
+from gcanet_tpu_torch.models.layers import (MLP, Dense, GroupNorm, conv_gn_act,
+                                            dense_gn, init_lecun_normal_, remat)
 from gcanet_tpu_torch.models.offset import OffsetPredModule
 from gcanet_tpu_torch.ops import grouping as grouping_ops
 from gcanet_tpu_torch.ops import knn as knn_ops
@@ -34,7 +44,7 @@ from gcanet_tpu_torch.ops.mathutil import safe_norm
 class ModelOutput(NamedTuple):
     type_per_point: torch.Tensor    # [B, N, cls] (log-softmax when 'r' in loss_class)
     param_per_point: torch.Tensor   # [B, N, 22] canonicalised primitive params
-    normal_per_point: torch.Tensor  # [B, N, 3] (zeros in mode 5)
+    normal_per_point: torch.Tensor  # [B, N, 3] (mode 3 only; zeros otherwise)
     semantic_scores: torch.Tensor   # [B*N, cls] raw logits for grouping
     pt_offsets: torch.Tensor        # [B*N, 3]
     embedding: torch.Tensor         # [B, N, emb]
@@ -68,28 +78,43 @@ class PrimitiveNet(nn.Module):
         c = cfg.num_primitives
         ih = cfg.instance_head
         self.encoder = DGCNNEncoderGn(nn_nb=cfg.nn_nb, knn_impl=cfg.knn_impl,
-                                      nn_nb_inner=cfg.nn_nb_inner)
+                                      nn_nb_inner=cfg.nn_nb_inner, mode=cfg.mode,
+                                      compute_bf16=cfg.encoder_bf16,
+                                      edge_backward=cfg.edge_backward,
+                                      shared_graph=cfg.shared_graph, remat=cfg.remat)
         # trunk (dgcnn-4.py:644-645)
-        self.conv1 = nn.Linear(1280, 512)
+        self.conv1 = Dense(1280, 512)
         self.bn1 = GroupNorm(8, 512)
-        self.conv2 = nn.Linear(512, 256)
+        self.conv2 = Dense(512, 256)
         self.bn2 = GroupNorm(4, 256)
-        # type, param, embedding and normal-angle heads (dgcnn-4.py:650-699)
-        self.mlp_prim_prob1 = nn.Linear(256, 256)
+        # type, param, normal (mode 3), embedding and normal-angle heads
+        # (dgcnn-4.py:650-699)
+        self.mlp_prim_prob1 = Dense(256, 256)
         self.bn_prim_prob1 = GroupNorm(4, 256)
-        self.mlp_prim_prob2 = nn.Linear(256, c)
-        self.mlp_param_prob1 = nn.Linear(256, 256)
+        self.mlp_prim_prob2 = Dense(256, c)
+        self.mlp_param_prob1 = Dense(256, 256)
         self.bn_param_prob1 = GroupNorm(4, 256)
-        self.mlp_param_prob2 = nn.Linear(256, 22)
-        self.conv_normal = nn.Sequential(nn.Linear(7, 64, bias=False))
+        self.mlp_param_prob2 = Dense(256, 22)
+        if cfg.mode == 3:
+            self.mlp_normal_prob1 = Dense(256, 256)
+            self.bn_normal_prob1 = GroupNorm(4, 256)
+            self.mlp_normal_prob2 = Dense(256, 3)
+        # the normal-angle feature is 7 wide over 6-d points; in mode 0 the
+        # points are xyz alone and it is the clamped empty dot product, 1 wide
+        width6 = cfg.mode in (3, 5)
+        self.conv_normal = nn.Sequential(Dense(7 if width6 else 1, 64, bias=False))
         self.bn_normal = GroupNorm(2, 64)
-        self.mlp_seg_prob1 = nn.Linear(256 * 3 + 64, 256)
+        self.mlp_seg_prob1 = Dense(256 * 3 + 64, 256)
         self.bn_seg_prob1 = GroupNorm(4, 256)
-        self.mlp_seg_prob2 = nn.Linear(256, cfg.out_dim)
-        # offset module input (dgcnn-4.py:710-716)
-        self.conv3 = nn.Linear(256 + cfg.input_channels, 128)
+        self.mlp_seg_prob2 = Dense(256, cfg.out_dim)
+        # offset module input (dgcnn-4.py:710-716); its points are 6-d in
+        # modes 5 and 3 (xyz ++ the given or the predicted normal)
+        self.conv3 = Dense(256 + (6 if width6 else 3), 128)
         self.bn3 = GroupNorm(4, 128)
-        self.offset_pred_block = OffsetPredModule(cfg.offset_knn, cfg.offset_keypoints)
+        if cfg.ablation:
+            self.offset_linear = MLP(128, 3, hidden_features=128)
+        else:
+            self.offset_pred_block = OffsetPredModule(cfg.offset_knn, cfg.offset_keypoints)
         # instance head: its children are registered here, at the top level
         # where the reference keeps them; the tuple holds the head itself
         # without registering its parameters a second time
@@ -114,10 +139,12 @@ class PrimitiveNet(nn.Module):
         cfg = self.cfg
         b, n, _ = xyz.shape
         num_cls = cfg.num_primitives
-        points = torch.cat([xyz, normals], dim=-1)
+        points = torch.cat([xyz, normals], dim=-1) if cfg.mode == 5 else xyz
 
         # shared neighbourhood: encoder layer 1 and the normal-angle feature
-        idx1 = knn_ops.knn_points_normals_indices(points, cfg.nn_nb, cfg.knn_impl)
+        knn = (knn_ops.knn_points_normals_indices if cfg.mode == 5
+               else knn_ops.knn_indices)
+        idx1 = knn(points, cfg.nn_nb, cfg.knn_impl)
         nbr1 = knn_ops.gather_neighbors(points, idx1)
         feats = self.encoder(points, idx1, nbr1)                      # [B, N, 1280]
 
@@ -133,15 +160,38 @@ class PrimitiveNet(nn.Module):
         x_para = torch.relu(dense_gn(self.mlp_param_prob1, self.bn_param_prob1, x_all))
         param_per_point = canonicalize_params(self.mlp_param_prob2(x_para))
 
-        nf = knn_ops.edge_feature_normals_g_from_gathered(points, nbr1)
-        normal_feature = conv_gn_act(self.conv_normal, self.bn_normal, nf).amax(dim=2)
+        if cfg.mode == 3:                                   # dgcnn-4.py:682-688
+            x_nrm = torch.relu(dense_gn(self.mlp_normal_prob1, self.bn_normal_prob1, x_all))
+            nrm = self.mlp_normal_prob2(x_nrm)
+            normal_per_point = nrm / (safe_norm(nrm, dim=-1, keepdim=True) + 1e-12)
+            points6 = torch.cat([points, normal_per_point], dim=-1)
+            idx_emb = knn_ops.knn_points_normals_indices(points6, cfg.nn_nb, cfg.knn_impl)
+            nf = knn_ops.edge_feature_normals_g(points6, idx_emb)
+        else:
+            normal_per_point = torch.zeros_like(xyz)
+            points6 = points
+            nf = knn_ops.edge_feature_normals_g_from_gathered(points6, nbr1)
+        dt = torch.bfloat16 if cfg.encoder_bf16 else None
+
+        def normal_block(f):
+            return conv_gn_act(self.conv_normal, self.bn_normal, f, dt)
+
+        normal_feature = (remat(normal_block, {"conv": self.conv_normal, "gn": self.bn_normal},
+                                nf) if cfg.remat else normal_block(nf)
+                          ).amax(dim=2).to(x_all.dtype)               # [B, N, 64]
         emb_in = torch.cat([x_all, x_type, x_para, normal_feature], dim=-1)  # 832
         h = torch.relu(dense_gn(self.mlp_seg_prob1, self.bn_seg_prob1, emb_in))
         embedding = self.mlp_seg_prob2(h)                             # [B, N, emb]
 
         opc = torch.relu(dense_gn(self.conv3, self.bn3,
-                                  torch.cat([x_all, points], dim=-1)))
-        pt_offsets = self.offset_pred_block(xyz, opc, embedding)      # [B, N, 3]
+                                  torch.cat([x_all, points6], dim=-1)))
+        if cfg.ablation:
+            pt_offsets = self.offset_linear(opc)                      # [B, N, 3]
+        elif cfg.remat:
+            pt_offsets = remat(self.offset_pred_block, {"m": self.offset_pred_block},
+                               xyz, opc, embedding)
+        else:
+            pt_offsets = self.offset_pred_block(xyz, opc, embedding)  # [B, N, 3]
 
         # grouping (dgcnn-4.py:1122-1295), on detached inputs
         cls_argmax = type_logits.argmax(dim=-1).to(torch.int32)
@@ -165,7 +215,7 @@ class PrimitiveNet(nn.Module):
         return ModelOutput(
             type_per_point=type_per_point,
             param_per_point=param_per_point,
-            normal_per_point=torch.zeros_like(xyz),
+            normal_per_point=normal_per_point,
             semantic_scores=semantic_scores,
             pt_offsets=pt_offsets.reshape(b * n, 3),
             embedding=embedding,

@@ -107,6 +107,36 @@ def _cc_stats(labels: torch.Tensor, shifted: torch.Tensor):
     return csize, size_at_root, center_at_root
 
 
+def proposal_rank_bound(b: int, n: int, num_classes: int) -> int:
+    """An upper bound of ``build_proposals``' ranks at ``B=b, N=n``."""
+    return ((b * num_classes) * 2 + 1) * (b * n) + b * n - 1
+
+
+def soft_rank_bound(b: int, n: int, grouped: int) -> int:
+    """An upper bound of ``build_soft_proposals``' ranks, ``grouped`` classes."""
+    return grouped * (b * n) + b * n
+
+
+def check_rank_bound(bound: int, what: str) -> None:
+    """Refuse a shape whose proposal ranks may reach the ``_BIG_I``
+    sentinel: a rank at or above it would mark a real proposal as none.
+    Checked before anything is allocated."""
+    if bound >= _BIG_I:
+        raise ValueError(f"{what}: ranks up to {bound} reach the sentinel 2**30; "
+                         f"the shape is too large")
+
+
+def _rank_in_group(order_key: torch.Tensor, group: torch.Tensor) -> torch.Tensor:
+    """Each element's rank within its ``group`` when sorted by the unique
+    ``order_key`` (a group's keys sort together, ahead of the next group's)."""
+    order = torch.argsort(order_key)
+    sorted_group = group[order]
+    first = torch.searchsorted(sorted_group, sorted_group, side="left")
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.numel(), device=order.device) - first
+    return rank
+
+
 @torch.no_grad()
 def build_proposals(shifted: torch.Tensor,      # [B, N, 3]
                     cls: torch.Tensor,          # [B, N] int32
@@ -120,11 +150,8 @@ def build_proposals(shifted: torch.Tensor,      # [B, N, 3]
     b, n, _ = shifted.shape
     dev = shifted.device
     n_total = b * n
-    if ((b * num_classes) * 2 + 1) * n_total + n_total - 1 >= 2**31:
-        raise ValueError(f"proposal rank overflows int32 at B={b}, N={n}, "
-                         f"C={num_classes}")
-    if using_set_aggr and (cfg.absorb_fragment_cap or cfg.absorb_point_cap):
-        raise NotImplementedError("absorb caps (--strict_caps) are not ported yet")
+    check_rank_bound(proposal_rank_bound(b, n, num_classes),
+                     f"proposal rank at B={b}, N={n}, C={num_classes}")
 
     if num_classes <= len(cfg.class_numpoint_mean):
         mean_tbl = torch.tensor(cfg.class_numpoint_mean[:num_classes],
@@ -210,9 +237,22 @@ def build_proposals(shifted: torch.Tensor,      # [B, N, 3]
         nearest_d2 = torch.gather(d2, 1, nearest[:, None])[:, 0]
         r_set2 = (cfg.set_aggr_r_coeff ** 2) * prop_size[nearest].to(torch.float32)
         absorbed = g_frag_root & (nearest_d2 < r_set2)
+        if cfg.absorb_fragment_cap:
+            # hierarchical_aggregation.cu:9: a primary absorbs at most ``cap``
+            # fragments, in ascending fragment-root order (the JAX package's
+            # stand-in for the CUDA arrival order)
+            key = torch.where(absorbed, nearest, p)
+            absorbed &= _rank_in_group(key * (n_total + 1) + g_idx, key) < cfg.absorb_fragment_cap
         absorb_pid_at_root = torch.where(absorbed, nearest.to(torch.int32), -1)
         pid_b = absorb_pid_at_root[g_labels]
         pid_b = torch.where(is_fragment.reshape(-1) & (pid_b >= 0), pid_b, -1)
+        if cfg.absorb_point_cap:
+            # hierarchical_aggregation.cu:11: at most ``cap`` absorbed points
+            # per primary, in (fragment root, point index) order
+            pidk = torch.where(pid_b >= 0, pid_b, p).long()
+            order_key = (pidk * n_total + g_labels) * n_total + g_idx
+            pid_b = torch.where(_rank_in_group(order_key, pidk) < cfg.absorb_point_cap,
+                                pid_b, -1)
 
     return Proposals(point_pid=torch.stack([pid_a, pid_b]), valid=top_valid,
                      cls=prop_cls, batch=prop_batch, size=prop_size, num=num)
@@ -257,8 +297,7 @@ def build_soft_proposals(shifted: torch.Tensor,          # [B, N, 3]
     gc = len(grouped)
     if gc < 1:
         raise ValueError("every class is ignored: nothing to group")
-    if gc * n_total + n_total >= 2**31:
-        raise ValueError(f"soft-proposal rank overflows int32 at B={b}, N={n}, C={gc}")
+    check_rank_bound(soft_rank_bound(b, n, gc), f"soft-proposal rank at B={b}, N={n}, C={gc}")
 
     grouped_t = torch.tensor(grouped, dtype=torch.long, device=dev)
     member = torch.softmax(semantic_logits, dim=-1)[..., grouped_t] > cfg.score_thr

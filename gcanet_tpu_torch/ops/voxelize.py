@@ -62,7 +62,8 @@ def clusters_voxelization(coords: torch.Tensor,      # [B*N, 3]
     if rand_quantize:
         if r1 is None:
             r1 = torch.rand((2, 3), generator=generator, device=coords.device)
-        r1 = r1.to(cmin)
+        # fp32, so a bf16 grid origin promotes to fp32 here, as in JAX
+        r1 = r1.to(device=cmin.device, dtype=torch.float32)
         rng_range = cmax * clusters_scale[:, None] - cmin
         cmin = cmin - torch.clamp(g - rng_range - 0.001, min=0.0) * r1[0]
         cmin = cmin - torch.clamp(g - rng_range + 0.001, max=0.0) * r1[1]

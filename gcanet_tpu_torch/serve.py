@@ -1,11 +1,12 @@
-"""Inference/serving API of the port (``gcanet_tpu/serve.py``: ``Predictor``'s
-fast path and ``ScenePredictor``).
+"""Inference/serving API of the port (``gcanet_tpu/serve.py``: ``Predictor``
+and ``ScenePredictor``).
 
 Each predictor loads weights once, then ``predict`` / ``predict_batch`` /
 ``predict_stream`` run the model and the instance extraction on the device
-and copy the results to the host in one transfer per batch.  It runs on
-``cuda`` unless the caller passes ``device="cpu"``; it never moves to the
-CPU on its own.
+and copy the results to the host in one transfer per batch
+(``predict(return_masks=True)`` copies the mask scores and extracts on the
+host).  It runs on ``cuda`` unless the caller passes ``device="cpu"``; it
+never moves to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -86,28 +87,58 @@ class Predictor:
                 out.type_per_point, out.param_per_point, out.pt_offsets,
                 out.embedding]
 
+    @torch.inference_mode()
+    def _forward_masks(self, xyz: np.ndarray, normals: np.ndarray) -> List[np.ndarray]:
+        """The forward of one cloud and one copy of what the host extraction
+        reads: point_pid, semantic scores, the head's cls/iou/mask scores,
+        proposal validity, types, params, offsets, embedding."""
+        xyz_t, nrm_t = (torch.as_tensor(np.ascontiguousarray(a, np.float32)[None],
+                                        device=self.device) for a in (xyz, normals))
+        out = self.model(xyz_t, nrm_t)
+        return fetch([out.proposals.point_pid, out.semantic_scores, out.instance.cls_scores,
+                      out.instance.iou_scores, out.instance.mask_scores, out.proposals.valid,
+                      out.type_per_point[0], out.param_per_point[0], out.pt_offsets,
+                      out.embedding[0]])
+
     def predict(self, xyz: np.ndarray, normals: np.ndarray,
                 return_masks: bool = False, return_embedding: bool = False,
                 panoptic: bool = False) -> Dict:
         """``xyz/normals [N, 3]`` -> per-point types/params/offsets and the
-        instance list (RLE masks from the merged, non-overlapping labels)."""
-        if return_masks or panoptic:
-            raise NotImplementedError("return_masks and panoptic are not ported "
-                                      "yet (see ROADMAP.md)")
-        dev = self._forward_fast(np.asarray(xyz)[None], np.asarray(normals)[None])
-        if not return_embedding:
-            dev = dev[:-1]
-        fetched = fetch(dev)
-        merged, keep, conf, npoint, covered, _, tpp, ppp, off = fetched[:9]
-        preds = inst_utils.instances_from_merged(merged, keep, conf, npoint, covered)
-        return {
-            "type_per_point": tpp[0],
-            "param_per_point": ppp[0],
-            "pt_offsets": off,
-            "embedding": fetched[9][0] if return_embedding else None,
-            "instances": preds,
-            "instance_labels": merged,
-        }
+        instance list.  By default the instances come from the merged,
+        non-overlapping labels extracted on the device; ``return_masks``
+        copies the head's mask scores to the host and runs ``get_instances``
+        there, whose RLE masks may overlap as the reference's do (the
+        embedding is returned too).  ``panoptic`` adds the fused
+        ``class | id << 16`` labels (``panoptic_fusion``)."""
+        n = np.shape(xyz)[0]
+        if return_masks:
+            (pid, sem, cls_s, iou_s, mask_s, valid, tpp, ppp, off,
+             emb) = self._forward_masks(xyz, normals)
+            preds = inst_utils.get_instances(pid, sem, cls_s, iou_s, mask_s, valid,
+                                             self.cfg.num_primitives)
+            merged = inst_utils.merge_masks(preds) if preds else np.zeros(n, np.int32)
+            result = {"type_per_point": tpp, "param_per_point": ppp, "pt_offsets": off,
+                      "embedding": emb, "instances": preds, "instance_labels": merged}
+        else:
+            dev = self._forward_fast(np.asarray(xyz)[None], np.asarray(normals)[None])
+            if not return_embedding:
+                dev = dev[:-1]
+            fetched = fetch(dev)
+            merged, keep, conf, npoint, covered, _, tpp, ppp, off = fetched[:9]
+            result = {
+                "type_per_point": tpp[0],
+                "param_per_point": ppp[0],
+                "pt_offsets": off,
+                "embedding": fetched[9][0] if return_embedding else None,
+                "instances": inst_utils.instances_from_merged(merged, keep, conf, npoint,
+                                                              covered),
+                "instance_labels": merged,
+            }
+        if panoptic:
+            result["panoptic"] = inst_utils.panoptic_fusion(
+                result["type_per_point"].argmax(-1), result["instances"],
+                self.cfg.num_primitives)
+        return result
 
     def predict_batch(self, xyz: np.ndarray, normals: np.ndarray) -> List[Dict]:
         """``xyz/normals [B, N, 3]`` -> one prediction dict per cloud, with
@@ -151,7 +182,7 @@ class Predictor:
 
     def predict_type_sharded(self, xyz: np.ndarray, normals: np.ndarray):
         raise NotImplementedError("predict_type_sharded is not ported yet "
-                                  "(see ROADMAP.md)")
+                                  "(sequence parallelism, see ROADMAP.md)")
 
 
 class ScenePredictor:

@@ -5,7 +5,8 @@ the ``[N]`` merged labels and small ``[P, CI]`` tables to copy to the host;
 ``instances_from_merged`` builds the instance list there.  The host pair
 ``get_instances`` + ``merge_masks`` (dgcnn-4.py:1040-1120, :975-999) gives
 the same labels from the fetched model outputs, and is what the device path
-is held against.
+is held against; ``panoptic_fusion`` pastes the instances onto the semantic
+labels.
 
 Scene family: ``instance_masks_device`` keeps every kept (proposal, class)
 mask on its own, overlapping (softgroup.py:537-604 never merges them);
@@ -85,6 +86,35 @@ def merge_masks(instances: List[Dict]) -> np.ndarray:
     (dgcnn-4.py:975-999); a point no mask covers lands on 0."""
     masks = np.stack([rle_decode(inst["pred_mask"]) for inst in instances])
     return masks.argmax(0).astype(np.int32)
+
+
+def panoptic_fusion(semantic_preds: np.ndarray, instance_preds: List[Dict],
+                    num_classes: int) -> np.ndarray:
+    """dgcnn-4.py:1001-1037: the instances pasted in descending confidence
+    onto the semantic labels, skipping one whose mask is more than half
+    covered already; ``class | id << 16`` per point (uint32), with unpasted
+    points of class >= 11 set to ``num_classes``."""
+    skip_iou = 0.5
+    panoptic_cls = semantic_preds.astype(np.uint32).copy()
+    panoptic_ids = np.zeros_like(semantic_preds, np.uint32)
+    order = np.argsort([x["conf"] for x in instance_preds])[::-1]
+    prev = np.zeros_like(semantic_preds, bool)
+    pid = 1
+    for i in order:
+        inst = instance_preds[i]
+        mask = rle_decode(inst["pred_mask"]).astype(bool)
+        inter = (mask & prev).sum()
+        if inter / (mask.sum() + 1e-5) > skip_iou:
+            continue
+        paste = mask & ~prev
+        panoptic_cls[paste] = inst["label_id"]
+        panoptic_ids[paste] = pid
+        prev |= paste
+        pid += 1
+    ignore = (panoptic_cls >= 11) & (panoptic_ids == 0)
+    out = (panoptic_cls & 0xFFFF) | (panoptic_ids << 16)
+    out[ignore] = num_classes
+    return out.astype(np.uint32)
 
 
 @torch.no_grad()

@@ -4,7 +4,9 @@ Loss orchestration mirrors ``MyTrainer.process_batch`` (train_new.py:22-137):
 the 'f'/'r'/'p'/'n' characters of ``loss_class`` select the embedding,
 type + offset + instance, parameter and normal losses with the reference's
 weights (train_new.py:104-128).  ``train_step`` is forward in training mode,
-backward, one optimizer step; its metrics stay on the device.  ``eval_step``
+backward, one optimizer step; its metrics stay on the device.  With
+``precision="bf16"`` its forward runs on bf16 copies of the weights and
+inputs, as the JAX step's does.  ``eval_step``
 is the eval forward, the losses and the merged instance labels, all on the
 device.
 """
@@ -20,6 +22,7 @@ from gcanet_tpu_torch.config import Config, check_trainable
 from gcanet_tpu_torch.losses import losses as L
 from gcanet_tpu_torch.models.primitive_net import ModelOutput, PrimitiveNet
 from gcanet_tpu_torch.train import instances as inst_utils
+from gcanet_tpu_torch.utils.precision import _map_floats
 
 
 def compute_losses(cfg: Config, out: ModelOutput, batch: Mapping[str, torch.Tensor]
@@ -105,6 +108,25 @@ def batch_to_device(batch: Mapping[str, np.ndarray], device: torch.device | str
     return out
 
 
+def train_forward(model: PrimitiveNet, batch: Mapping[str, torch.Tensor],
+                  r1: torch.Tensor | None = None,
+                  generator: torch.Generator | None = None) -> ModelOutput:
+    """The step's forward in training mode.  ``precision="bf16"`` (JAX
+    ``train/step.py:194-213``): the model runs on bf16 copies of its
+    parameters (``functional_call``; the gradient flows back through the
+    cast to the fp32 parameters the optimizer holds) and of ``gt_pc`` /
+    ``gt_normal``, its running statistics stay fp32, and every floating
+    output is cast to fp32 before the losses."""
+    model.train()
+    if model.cfg.precision != "bf16":
+        return model(batch["gt_pc"], batch["gt_normal"], r1=r1, generator=generator)
+    params = {k: p.to(torch.bfloat16) for k, p in model.named_parameters()}
+    out = torch.func.functional_call(
+        model, params, (batch["gt_pc"].to(torch.bfloat16), batch["gt_normal"].to(torch.bfloat16)),
+        {"r1": r1, "generator": generator})
+    return _map_floats(out, torch.float32)
+
+
 def train_step(model: PrimitiveNet, optimizer: torch.optim.Optimizer,
                batch: Mapping[str, torch.Tensor],
                generator: torch.Generator | None = None) -> Dict[str, torch.Tensor]:
@@ -115,8 +137,7 @@ def train_step(model: PrimitiveNet, optimizer: torch.optim.Optimizer,
     ``total_loss`` as detached device tensors: nothing is copied to the host.
     """
     check_trainable(model.cfg)
-    model.train()
-    out = model(batch["gt_pc"], batch["gt_normal"], generator=generator)
+    out = train_forward(model, batch, generator=generator)
     total, loss_dict = compute_losses(model.cfg, out, batch)
     optimizer.zero_grad(set_to_none=True)
     total.backward()

@@ -81,10 +81,15 @@ def _instance_head_rules(prefix: str, ih: tuple[str, ...]) -> list[_Rule]:
     return rules
 
 
-def build_rules() -> list[_Rule]:
-    """The mode-5 flagship key map (models/dgcnn-hais-concat-direct-4.py)."""
+def build_rules(mode: int = 5, ablation: bool = False) -> list[_Rule]:
+    """The flagship key map (models/dgcnn-hais-concat-direct-4.py).  Modes 5
+    and 0 share it (only ``conv1``'s, ``conv_normal``'s and ``conv3``'s
+    widths differ).  Mode 3 inserts the normal head, so the flax
+    auto-names of the heads after it shift by one; ``ablation`` has the
+    ``offset_linear`` MLP where the offset module was."""
     enc = ("DGCNNEncoderGn_0",)
     opm = ("OffsetPredModule_0",)
+    nh = 1 if mode == 3 else 0              # the normal head's shift of later names
     rules: list[_Rule] = [
         ("encoder.conv1.0", enc + ("ConvGNAct_0", "Dense_0"), LINEAR, False),
         ("encoder.bn1", enc + ("ConvGNAct_0", "GroupNorm_0"), NORM, False),
@@ -104,19 +109,29 @@ def build_rules() -> list[_Rule]:
         ("mlp_param_prob1", ("DenseGN_3", "Dense_0"), LINEAR, True),
         ("bn_param_prob1", ("DenseGN_3", "GroupNorm_0"), NORM, False),
         ("mlp_param_prob2", ("Dense_1",), LINEAR, True),
-        ("mlp_seg_prob1", ("DenseGN_4", "Dense_0"), LINEAR, True),
-        ("bn_seg_prob1", ("DenseGN_4", "GroupNorm_0"), NORM, False),
-        ("mlp_seg_prob2", ("Dense_2",), LINEAR, True),
+        ("mlp_seg_prob1", (f"DenseGN_{4 + nh}", "Dense_0"), LINEAR, True),
+        ("bn_seg_prob1", (f"DenseGN_{4 + nh}", "GroupNorm_0"), NORM, False),
+        ("mlp_seg_prob2", (f"Dense_{2 + nh}",), LINEAR, True),
         ("conv_normal.0", ("ConvGNAct_0", "Dense_0"), LINEAR, False),
         ("bn_normal", ("ConvGNAct_0", "GroupNorm_0"), NORM, False),
-        ("conv3", ("DenseGN_5", "Dense_0"), LINEAR, True),
-        ("bn3", ("DenseGN_5", "GroupNorm_0"), NORM, False),
-        ("offset_pred_block.conv1.0", opm + ("ConvGNAct_0", "Dense_0"), LINEAR, False),
-        ("offset_pred_block.bn1", opm + ("ConvGNAct_0", "GroupNorm_0"), NORM, False),
-        ("offset_pred_block.attention.conv1.0", opm + ("KPAM_0", "Dense_0"), LINEAR, False),
-        ("offset_pred_block.attention.conv1.2", opm + ("KPAM_0", "Dense_1"), LINEAR, False),
-        ("offset_pred_block.mlp_offset", opm + ("Dense_0",), LINEAR, True),
+        ("conv3", (f"DenseGN_{5 + nh}", "Dense_0"), LINEAR, True),
+        ("bn3", (f"DenseGN_{5 + nh}", "GroupNorm_0"), NORM, False),
     ]
+    if mode == 3:
+        rules += [("mlp_normal_prob1", ("DenseGN_4", "Dense_0"), LINEAR, True),
+                  ("bn_normal_prob1", ("DenseGN_4", "GroupNorm_0"), NORM, False),
+                  ("mlp_normal_prob2", ("Dense_2",), LINEAR, True)]
+    if ablation:
+        rules += [("offset_linear.0", ("MLP_0", "Dense_0"), LINEAR, True),
+                  ("offset_linear.2", ("MLP_0", "Dense_1"), LINEAR, True)]
+    else:
+        rules += [
+            ("offset_pred_block.conv1.0", opm + ("ConvGNAct_0", "Dense_0"), LINEAR, False),
+            ("offset_pred_block.bn1", opm + ("ConvGNAct_0", "GroupNorm_0"), NORM, False),
+            ("offset_pred_block.attention.conv1.0", opm + ("KPAM_0", "Dense_0"), LINEAR, False),
+            ("offset_pred_block.attention.conv1.2", opm + ("KPAM_0", "Dense_1"), LINEAR, False),
+            ("offset_pred_block.mlp_offset", opm + ("Dense_0",), LINEAR, True),
+        ]
     return rules + _instance_head_rules("", ("InstanceHead_0",))
 
 
@@ -157,11 +172,15 @@ def _leaf_pairs(kind: str, has_bias: bool) -> list[tuple[str, str]]:
     return [("weight", "kernel")] + ([("bias", "bias")] if has_bias else [])
 
 
-def _rules(family: str, instance_head: bool = True) -> list[_Rule]:
+def _rules(family: str, params: Mapping | None = None) -> list[_Rule]:
+    """The rules of ``family``, for the variant whose flax tree ``params``
+    is (``None``: every key of the family's variants)."""
     if family == "flagship":
-        return build_rules()
+        if params is None:
+            return build_rules(3, False) + build_rules(5, True)
+        return build_rules(3 if "DenseGN_6" in params else 5, "MLP_0" in params)
     if family == "scene":
-        return build_scene_rules(instance_head)
+        return build_scene_rules(params is None or "instance_head" in params)
     raise ValueError(f"unknown model family {family!r}; 'flagship' or 'scene'")
 
 
@@ -187,9 +206,11 @@ def _from_flax(kind: str, leaf: str, w: np.ndarray) -> np.ndarray:
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping | None,
                         family: str = "flagship") -> dict[str, torch.Tensor]:
     """Flax ``(params, batch_stats)`` trees of the JAX ``PrimitiveNet``
-    (``family="flagship"``) or ``SoftGroupNet`` (``family="scene"``; a tree
-    without ``instance_head`` is a ``semantic_only`` model's), as nested
-    dicts of numpy arrays, -> a state_dict of the port's counterpart.
+    (``family="flagship"``; a tree with ``DenseGN_6`` is a mode-3 model's,
+    one with ``MLP_0`` an ``ablation`` model's) or ``SoftGroupNet``
+    (``family="scene"``; a tree without ``instance_head`` is a
+    ``semantic_only`` model's), as nested dicts of numpy arrays, -> a
+    state_dict of the port's counterpart.
 
     Every transform is a transpose or a flip, so a gradient tree of the
     params maps the same way onto the port's ``.grad`` tensors (either
@@ -197,7 +218,7 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping | None,
     the params alone, or a training step's new ``batch_stats`` to compare
     running statistics."""
     out: dict[str, torch.Tensor] = {}
-    for prefix, fpath, kind, has_bias in _rules(family, "instance_head" in params):
+    for prefix, fpath, kind, has_bias in _rules(family, params):
         if kind == BN_STATS and batch_stats is None:
             continue
         node = batch_stats if kind == BN_STATS else params

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, and a tiny
-train step, eval step, scene forward and scene train step against the CPU,
-on the card.
+train step (also at ``precision="bf16"``), eval step, scene forward and
+scene train step against the CPU, and the reverse-gather backward against
+the scatter backward, on the card.
 
 Needs an NVIDIA GPU; skips without one.  Imports no JAX, so on a machine
 without it run it past the suite's conftest:
@@ -16,6 +17,7 @@ from gcanet_tpu_torch.data.synthetic import synth_batch, synth_scene_batch
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
 from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
 from gcanet_tpu_torch.ops import cc
+from gcanet_tpu_torch.ops import knn as knn_ops
 from gcanet_tpu_torch.serve import ScenePredictor
 
 pytestmark = pytest.mark.cuda
@@ -99,6 +101,46 @@ def test_train_step_card_equals_cpu(cuda, head_bf16):
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     assert res["proposals"] > 0
+
+
+def test_bf16_step_card_equals_cpu(cuda):
+    """``precision="bf16"``: one tiny train step on the card and on the CPU
+    (``chip_smoke.train_step_card_vs_cpu``: losses at the bf16 tolerance,
+    gradients by cosine)."""
+    import chip_smoke
+
+    cfg = Config(num_points=256, batch_size=2, nn_nb=12, nn_nb_inner=8, offset_knn=6,
+                 offset_keypoints=24, max_instances=16, precision="bf16",
+                 grouping=GroupingConfig(radius=0.1, min_npoint=5,
+                                         class_numpoint_mean=(-1.0,) * 7,
+                                         similarity_threshold_inst=0.9),
+                 instance_head=InstanceHeadConfig(grid_size=8, max_proposals=24))
+    model = PrimitiveNet(cfg)
+    chip_smoke.push_weights(model)
+    r1 = torch.rand((2, 3), generator=torch.Generator().manual_seed(0))
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        res = chip_smoke.train_step_card_vs_cpu(cfg, model.state_dict(),
+                                                synth_batch(cfg, 2, seed=0), r1, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert res["proposals"] > 0 and res["rest_grad_cosine"] >= 0.9
+
+
+def test_revgather_matches_scatter_on_card(cuda):
+    """The reverse-gather backward with M = the graph's largest in-degree
+    against autograd's scatter backward, on a kNN graph: one sum in another
+    order (rtol 1e-5, atol 1e-5 of the largest entry)."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    b, n, k, c = 2, 2048, 16, 32
+    idx = knn_ops.knn_indices(torch.rand(b, n, 3, device=cuda, generator=gen), k)
+    m = int(max(torch.bincount(idx[i].flatten(), minlength=n).max() for i in range(b)))
+    x = torch.randn(b, n, c, device=cuda, generator=gen, requires_grad=True)
+    g = torch.randn(b, n, k, c, device=cuda, generator=gen)
+    want = torch.autograd.grad(knn_ops.gather_neighbors(x, idx), x, g)[0]
+    got = torch.autograd.grad(knn_ops.gather_neighbors_rev(x, idx, m), x, g)[0]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
 
 def test_eval_step_card_equals_cpu(cuda):

@@ -17,6 +17,8 @@ names = [m.name for m in pkgutil.walk_packages(gcanet_tpu_torch.__path__, "gcane
 assert "gcanet_tpu_torch.train_new" in names     # its import must not run the CLI
 assert {"gcanet_tpu_torch.train." + m for m in
         ("scene_step", "scene_trainer", "instance_eval")} <= set(names)
+assert {"gcanet_tpu_torch.bench", "gcanet_tpu_torch.serve_http",
+        "gcanet_tpu_torch.utils.precision"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -155,8 +155,8 @@ def test_predict_stream_matches_batch(setup):
 
 def test_predictor_refuses_unported_paths(setup):
     predictor, xyz, nrm, _ = setup
-    with pytest.raises(NotImplementedError):
-        predictor.predict(xyz[0], nrm[0], return_masks=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        predictor.predict_type_sharded(xyz[0], nrm[0])
     with pytest.raises(NotImplementedError):
         Predictor(_port_cfg(), device="cpu", cluster_mode="meanshift")
     with pytest.raises(NotImplementedError):

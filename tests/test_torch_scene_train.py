@@ -412,8 +412,9 @@ def test_check_trainable_scene():
     for kw in (dict(remat=True), dict(precision="bf16"), dict(edge_backward="revgather:4"),
                dict(encoder_bf16=True)):
         check_trainable(cfg.replace(**kw), scene=True)
-        with pytest.raises(NotImplementedError):
-            check_trainable(cfg.replace(**kw))
+        check_trainable(cfg.replace(**kw))        # the flagship trains with them too
+    with pytest.raises(NotImplementedError, match="offset_variant.*ROADMAP"):
+        check_trainable(cfg.replace(offset_variant="dual"))
     with pytest.raises(NotImplementedError, match="mesh_shape.*ROADMAP"):
         check_trainable(cfg.replace(mesh_shape="2"), scene=True)
     with pytest.raises(ValueError, match="semantic_only"):

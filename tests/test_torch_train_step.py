@@ -418,18 +418,28 @@ def test_five_steps_loss_decreases():
 @pytest.mark.parametrize("field,value", [("remat", True), ("edge_backward", "revgather:4"),
                                          ("precision", "bf16"), ("mesh_shape", "2")])
 def test_training_refuses_unported_options(tmp_path, field, value):
+    """Training refuses what is not ported: data parallelism (``mesh_shape``
+    > 1).  The knobs it refused until the option surface was ported
+    (``remat``, ``revgather``, ``precision="bf16"``) now pass the check,
+    build a ``Trainer`` and take a finite step (their parity with the JAX
+    package is in ``tests/test_torch_knobs.py``)."""
     cfg = _tcfg().replace(**{field: value}, log_dir=str(tmp_path), data_path=str(tmp_path))
-    with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
-        check_trainable(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, device="cpu")
     model = PrimitiveNet(cfg)
     opt = tstep.make_optimizer(cfg, model.parameters())
     batch = tstep.batch_to_device(synth_batch(cfg, B, seed=0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.train_step(model, opt, batch)
-    if field != "mesh_shape":                    # serving keeps accepting the knob
-        Predictor(cfg, device="cpu")
+    if field == "mesh_shape":
+        with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
+            check_trainable(cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Trainer(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tstep.train_step(model, opt, batch)
+        return
+    check_trainable(cfg)
+    Trainer(cfg, device="cpu").close()
+    metrics = tstep.train_step(model, opt, batch, torch.Generator().manual_seed(0))
+    assert np.isfinite(float(metrics["total_loss"]))
+    Predictor(cfg, device="cpu")                 # serving accepts the knob too
 
 
 def test_trainer_epoch_checkpoint_and_seeds(tmp_path):
