@@ -108,6 +108,21 @@ Phases (any failure ends the run with a non-zero exit):
      concurrent requests in micro-batches of 4, each response equal to
      ``Predictor.predict`` on its cloud (integers exact, floats 1e-3):
      requests/s, p50 and p99 latency.
+ 21. the model variants.  The dual-attention ``-2`` model
+     (``--model_dict models.dgcnn-hais-concat-direct-2``): phase 4's card
+     against CPU forward and phase 7's train step (head in fp32 and bf16)
+     at N=2048, its key-point kNN replayed with the encoder's top-k; at full
+     width ``predict_batch`` at B=4 (clouds/s, peak memory) with
+     ``predict_stream`` equal to it, ``Trainer.train_one_epoch`` at B=3 (2
+     warm-up and 5 timed steps), phase 11's ``train_new`` then ``--eval``,
+     each with the CC kernel's launches counted from 0.  SPP-Net: card
+     against CPU at N=2048, four head-loss Adam steps (finite, falling), its
+     forward timed at N=7000, B=4.  SplineNet (modes 0 and 1, train and
+     eval), a multi-scale SA module, an FP module, soft projection, ViT and
+     the query decoder, card against CPU at a small size with the card's
+     top-k, FPS and ball-query picks replayed (floats 1e-3, integers
+     exact), and the Hungarian criterion (assignments exact, losses at
+     phase 7's tolerance).
 Weights are random from a seed, with pushes so that the path after
 grouping does real work (``push_weights``, ``push_scene_weights``).  Each
 phase prints its seconds.
@@ -136,14 +151,24 @@ import numpy as np
 import torch
 
 from gcanet_tpu_torch import bench, train_new
+from gcanet_tpu_torch.losses import mask2former
 from gcanet_tpu_torch.config import (Config, GroupingConfig, InstanceHeadConfig,
                                      scene_grouping_defaults)
 from gcanet_tpu_torch.data.synthetic import synth_batch, synth_clouds, synth_scene_batch
+from gcanet_tpu_torch.models import pointnet2 as p2_models
+from gcanet_tpu_torch.models.offset_dual import OffsetPredModuleDual
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
+from gcanet_tpu_torch.models.query_decoder import QueryDecoder
+from gcanet_tpu_torch.models.registry import build_model
+from gcanet_tpu_torch.models.soft_projection import SoftProjection
 from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
+from gcanet_tpu_torch.models.splinenet import DGCNNControlPoints
+from gcanet_tpu_torch.models.sppnet import head_losses
+from gcanet_tpu_torch.models.transformer import ViT
 from gcanet_tpu_torch.ops import cc
 from gcanet_tpu_torch.ops import grouping as grouping_ops
 from gcanet_tpu_torch.ops import knn as knn_ops
+from gcanet_tpu_torch.ops import pointnet2 as p2_ops
 from gcanet_tpu_torch.ops import voxelize as vox_ops
 from gcanet_tpu_torch.serve import Predictor, ScenePredictor
 from gcanet_tpu_torch.serve_http import PredictionServer
@@ -221,6 +246,9 @@ REMAT_GRAD_ATOL_SHARE = 1e-5
 REVGATHER = dict(rtol=1e-5, atol_share=1e-5)
 # HTTP responses against Predictor.predict on the same cloud
 HTTP_FLOAT = dict(rtol=1e-3, atol=1e-3)
+
+# the model variants (phase 21): the dual-attention model's registry name
+DUAL = "models.dgcnn-hais-concat-direct-2"
 
 # ``--eval`` of a scene checkpoint against the training run's record: the
 # voxel means sum with float atomics on the card, so two evaluations of
@@ -444,34 +472,41 @@ def _to(props, device):
     return type(props)(*(t.to(device) for t in props))
 
 
-class ProposalReplay:
-    """Stands in for ``grouping_ops.<name>`` (``build_proposals`` or
-    ``build_soft_proposals``) while the card and then the CPU run the same
-    step.  Grouping is a hard threshold on floats that differ in the last
-    bits between the devices, so the card's proposals are recorded and
-    handed to the CPU, which records whether its own were equal; grouping
-    itself is checked on identical inputs apart."""
+class CallReplay:
+    """Stands in for ``module.<name>`` while the card and then the CPU run
+    the same step: a grouping (``build_proposals``, ``build_soft_proposals``;
+    a hard threshold on floats that differ in the last bits between the
+    devices, so grouping itself is checked on identical inputs apart) or an
+    index search of ``ops/pointnet2.py`` (``furthest_point_sample``,
+    ``ball_query``).  The card's results (a tensor or a tuple of tensors)
+    are recorded and handed to the CPU, which records whether its own were
+    equal, as ``TopkReplay`` does for ``torch.topk``."""
 
-    def __init__(self, name: str = "build_proposals"):
-        self.name = name
-        self.real = getattr(grouping_ops, name)
+    def __init__(self, name: str = "build_proposals", module=grouping_ops):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
         self.recorded, self.own_equal = [], []
         self.replaying = False
 
     def __enter__(self):
-        setattr(grouping_ops, self.name, self)
+        setattr(self.module, self.name, self)
         return self
 
     def __exit__(self, *exc):
-        setattr(grouping_ops, self.name, self.real)
+        setattr(self.module, self.name, self.real)
 
-    def __call__(self, shifted, *args, **kw):
-        props = self.real(shifted, *args, **kw)
+    def __call__(self, *args, **kw):
+        res = self.real(*args, **kw)
         if not self.replaying:
-            self.recorded.append(props)
-            return props
-        card = _to(self.recorded[len(self.own_equal)], shifted.device)
-        self.own_equal.append(all(torch.equal(a, b) for a, b in zip(props, card)))
+            self.recorded.append(res)
+            return res
+        card = self.recorded[len(self.own_equal)]
+        if isinstance(card, torch.Tensor):
+            card = card.to(res.device)
+            self.own_equal.append(torch.equal(res, card))
+        else:
+            card = _to(card, res[0].device)
+            self.own_equal.append(all(torch.equal(a, b) for a, b in zip(res, card)))
         return card
 
 
@@ -487,16 +522,18 @@ def _head_and_merge(model, cfg, props, xyz, emb):
     return vx, head, merged
 
 
-def phase_card_vs_cpu() -> None:
+def phase_card_vs_cpu(model_dict: str = Config.model_dict, tag: str = "card-vs-cpu") -> None:
     """The card against the CPU on one input.  The network's floats agree
     to a tolerance, with the card's top-k selections replayed on the CPU
     (``TopkReplay``); grouping and instance extraction are hard thresholds
     on those floats (radius, embedding gate, class argmax), so they are
     held exactly on IDENTICAL inputs on both devices, and the end-to-end
-    drift is reported."""
+    drift is reported.  ``model_dict`` names the model (phase 21: the
+    dual-attention variant); ``tag`` prefixes the lines."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = Config(num_points=2048, instance_head=InstanceHeadConfig(max_proposals=24))
+    cfg = Config(model_dict=model_dict, num_points=2048,
+                 instance_head=InstanceHeadConfig(max_proposals=24))
     cpu = Predictor(cfg, device="cpu")
     push_weights(cpu.model)
     card = Predictor(cfg, checkpoint=cpu.model.state_dict(), device="cuda")
@@ -508,7 +545,7 @@ def phase_card_vs_cpu() -> None:
             out_card = card.model(xyz_card, nrm_card)
             topk.replaying = True
             out_cpu = cpu.model(xyz_cpu, nrm_cpu)
-        print(f"[card-vs-cpu] top-k rows the CPU alone would select differently, per "
+        print(f"[{tag}] top-k rows the CPU alone would select differently, per "
               f"call (replaced by the card's selection): {topk.differing}")
 
         for name in ("type_per_point", "param_per_point", "semantic_scores",
@@ -517,7 +554,7 @@ def phase_card_vs_cpu() -> None:
             check(bool(torch.isfinite(g).all()), f"{name} not finite")
             err = float((g - w).abs().max())
             ok = torch.allclose(g, w, **CARD_VS_CPU_FLOAT)
-            print(f"[card-vs-cpu] {name}: max_abs_err {err:.3g} of max |x| "
+            print(f"[{tag}] {name}: max_abs_err {err:.3g} of max |x| "
                   f"{float(w.abs().max()):.3g} "
                   f"(rtol {CARD_VS_CPU_FLOAT['rtol']}, atol {CARD_VS_CPU_FLOAT['atol']}) "
                   f"{'ok' if ok else 'FAIL'}")
@@ -533,7 +570,7 @@ def phase_card_vs_cpu() -> None:
         for field in props_cpu._fields:
             check(torch.equal(getattr(props_card, field).cpu(), getattr(props_cpu, field)),
                   f"proposals.{field} differs between card and CPU on the same inputs")
-        print(f"[card-vs-cpu] proposals on identical inputs: equal "
+        print(f"[{tag}] proposals on identical inputs: equal "
               f"(num {int(props_cpu.num)}, sizes {props_cpu.size.tolist()})")
 
         # voxelisation, instance head and merged labels on identical inputs
@@ -548,7 +585,7 @@ def phase_card_vs_cpu() -> None:
             g, w = getattr(head_card, name).cpu(), getattr(head_cpu, name)
             err = float((g - w).abs().max())
             ok = torch.allclose(g, w, **CARD_VS_CPU_BF16)
-            print(f"[card-vs-cpu] instance head {name} (bf16): max_abs_err {err:.3g} "
+            print(f"[{tag}] instance head {name} (bf16): max_abs_err {err:.3g} "
                   f"(rtol {CARD_VS_CPU_BF16['rtol']}, atol {CARD_VS_CPU_BF16['atol']}) "
                   f"{'ok' if ok else 'FAIL'}")
             check(ok, f"instance head {name} differs between card and CPU")
@@ -560,7 +597,7 @@ def phase_card_vs_cpu() -> None:
             else:
                 check(torch.equal(g, w), f"{name} differs between card and CPU")
         kept = int(merged_cpu[1].sum())
-        print(f"[card-vs-cpu] merged labels, keep, npoint, covered on identical inputs: "
+        print(f"[{tag}] merged labels, keep, npoint, covered on identical inputs: "
               f"equal (kept instances {kept}, covered points {int(merged_cpu[4].sum())})")
         check(int(props_cpu.num) > 0 and kept > 0, "the reduced run did no work")
 
@@ -573,7 +610,7 @@ def phase_card_vs_cpu() -> None:
         flips = int((nbr_own != nbr_same).sum())
         same_pid = float((out_card.proposals.point_pid.cpu()
                           == out_cpu.proposals.point_pid).float().mean())
-        print(f"[card-vs-cpu] end to end (CPU with the card's top-k): proposals.num card "
+        print(f"[{tag}] end to end (CPU with the card's top-k): proposals.num card "
               f"{int(out_card.proposals.num)} / CPU {int(out_cpu.proposals.num)}, "
               f"point_pid equal at {same_pid:.4%} of entries, gated-mask entries "
               f"flipped by the float differences (cloud 0): {flips} of {int(nbr_same.sum())}")
@@ -763,7 +800,7 @@ def train_step_card_vs_cpu(cfg: Config, state: dict, batch_np: dict, r1: torch.T
         models[dev].load_state_dict(state)
         models[dev].instance_head.compute_bf16 = head_bf16
         batches[dev] = step_lib.batch_to_device(batch_np, dev)
-    with TopkReplay() as topk, ProposalReplay() as props:
+    with TopkReplay() as topk, CallReplay() as props:
         card = _forward_backward(models["cuda"], batches["cuda"], r1.cuda())
         topk.replaying = props.replaying = True
         cpu = _forward_backward(models["cpu"], batches["cpu"], r1.cpu())
@@ -985,7 +1022,7 @@ def eval_step_card_vs_cpu(cfg: Config, state: dict, batch_np: dict) -> dict:
     for dev in ("cuda", "cpu"):
         models[dev] = PrimitiveNet(cfg).to(dev)
         models[dev].load_state_dict(state)
-    with TopkReplay() as topk, ProposalReplay() as props:
+    with TopkReplay() as topk, CallReplay() as props:
         card = step_lib.eval_step(models["cuda"], step_lib.batch_to_device(batch_np, "cuda"))
         topk.replaying = props.replaying = True
         cpu = step_lib.eval_step(models["cpu"], step_lib.batch_to_device(batch_np, "cpu"))
@@ -1062,12 +1099,13 @@ def cli_hooks(synth_batches: int, push=None, trainer_name: str = "Trainer"):
             os.environ["GCA_SYNTH_BATCHES"] = old
 
 
-def _host_pair_matches_device(log_dir: str, n_clouds: int) -> list[int]:
+def _host_pair_matches_device(log_dir: str, n_clouds: int,
+                              model_dict: str = Config.model_dict) -> list[int]:
     """``get_instances`` + ``merge_masks`` on the host, from the fetched
     outputs of latest.tar's eval step on each synthetic eval cloud, against
     the card's ``merged_labels_device``; returns the kept instances per
     cloud."""
-    cfg = Config()
+    cfg = Config(model_dict=model_dict)
     model = trainer_mod.build_model(cfg).cuda()
     ckpt = torch.load(os.path.join(log_dir, "checkpoint", "latest.tar"), map_location="cuda",
                       weights_only=True)
@@ -1090,14 +1128,17 @@ def _host_pair_matches_device(log_dir: str, n_clouds: int) -> list[int]:
     return kept
 
 
-def phase_cli(smi: str) -> dict:
+def phase_cli(smi: str, model_dict: str = Config.model_dict, tag: str = "cli") -> dict:
     """Phase 11: ``train_new.main`` at full width, training and then
-    ``--eval``.  Returns the CC kernel's launches in each run."""
+    ``--eval`` (phase 21: with ``--model_dict`` the dual-attention variant;
+    ``tag`` prefixes the lines).  Returns the CC kernel's launches in each
+    run."""
     n_eval = 8                                      # the trainer's synthetic eval clouds
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as root, \
             cli_hooks(synth_batches=2) as (trainers, eval_seconds):
         log_dir = os.path.join(root, "log")
-        argv = ["--log_dir", log_dir, "--data_path", os.path.join(root, "none"),
+        argv = ["--model_dict", model_dict, "--log_dir", log_dir,
+                "--data_path", os.path.join(root, "none"),
                 "--max_epoch", "2", "--eval_interval", "1", "--save_interval", "1"]
         _reset_launches()
         with step_events() as marks:
@@ -1120,7 +1161,7 @@ def phase_cli(smi: str) -> dict:
         eval_peak = torch.cuda.max_memory_allocated()
         with open(os.path.join(log_dir, "scalars_test.jsonl")) as f:
             records = [json.loads(line) for line in f]
-        kept = _host_pair_matches_device(log_dir, n_eval)
+        kept = _host_pair_matches_device(log_dir, n_eval, model_dict)
 
     check(len(trainers) == 2 and all(t.eval_errors == 0 for t in trainers),
           f"eval errors {[t.eval_errors for t in trainers]}")
@@ -1140,17 +1181,17 @@ def phase_cli(smi: str) -> dict:
     step_ms = [t for t, _, _ in steps]
     eval_ms = [1e3 * t / n_eval for t in eval_seconds]
     step_launches = sum(k for _, k, _ in steps)
-    print(f"[cli] main(train): N={n} B={b}, {len(steps)} steps in 2 epochs, eval of "
+    print(f"[{tag}] main(train): N={n} B={b}, {len(steps)} steps in 2 epochs, eval of "
           f"{n_eval} clouds (B=1) after each; ms per train step (CUDA events) "
           f"{[round(t, 1) for t in step_ms]}, after the first "
           f"{np.mean(step_ms[1:]):.1f} ms ({smi})")
-    print(f"[cli] ms per eval cloud (host clock around test_one_epoch): epoch 0 "
+    print(f"[{tag}] ms per eval cloud (host clock around test_one_epoch): epoch 0 "
           f"{eval_ms[0]:.1f}, epoch 1 {eval_ms[1]:.1f}, --eval {eval_ms[2]:.1f}; eval peak "
           f"memory {eval_peak / 2**30:.2f} GiB ({smi})")
-    print(f"[cli] masked_min_sweep launches: train run {train_run} (train steps "
+    print(f"[{tag}] masked_min_sweep launches: train run {train_run} (train steps "
           f"{step_launches}, evals {train_run - step_launches}); --eval run {eval_run}, "
           f"{eval_run / n_eval:.1f} sweeps per eval cloud ({smi})")
-    print(f"[cli] --eval reproduces epoch 1: miou {again['miou']:.4f}, type_miou "
+    print(f"[{tag}] --eval reproduces epoch 1: miou {again['miou']:.4f}, type_miou "
           f"{again['type_miou']:.4f} exact, losses max relative difference {loss_err:.3g} "
           f"(rtol {EVAL_REPEAT_LOSS_RTOL}); eval_errors {[t.eval_errors for t in trainers]}; "
           f"host get_instances + merge_masks equal to the card's labels, kept instances per "
@@ -1177,7 +1218,7 @@ def scene_card_vs_cpu(cfg: Config, state: dict, xyz: np.ndarray, feats: np.ndarr
     inputs = {dev: (torch.as_tensor(xyz, device=dev), torch.as_tensor(feats, device=dev))
               for dev in ("cuda", "cpu")}
     with torch.inference_mode():
-        with ProposalReplay("build_soft_proposals") as props:
+        with CallReplay("build_soft_proposals") as props:
             card = models["cuda"](*inputs["cuda"])
             props.replaying = True
             cpu = models["cpu"](*inputs["cpu"])
@@ -1398,7 +1439,7 @@ def scene_train_card_vs_cpu(cfg: Config, state: dict, batch_np: dict, r1: torch.
         models[dev] = SoftGroupNet(cfg, scene_grid=grid, compute_bf16=bf16).to(dev)
         models[dev].load_state_dict(state)
         batches[dev] = step_lib.batch_to_device(batch_np, dev)
-    with ProposalReplay("build_soft_proposals") as props:
+    with CallReplay("build_soft_proposals") as props:
         card = _scene_forward_backward(models["cuda"], batches["cuda"], r1.cuda())
         props.replaying = True
         cpu = _scene_forward_backward(models["cpu"], batches["cpu"], r1.cpu())
@@ -2003,6 +2044,251 @@ def phase_serving_extras(smi: str) -> dict:
     return {"serve_masks": masks_launches, "serve_http": http_launches}
 
 
+# ---------------------------------------------------------------- phase 21
+
+
+def _card_vs_cpu_module(label: str, make, args_cpu: tuple, train: bool = False,
+                        tol=CARD_VS_CPU_FLOAT):
+    """One module built by ``make()`` (seeded weights), copied to the card,
+    run on ``args_cpu`` there and on the CPU with the card's index searches
+    replayed; every float output at ``tol``, integer outputs exactly, and in
+    training mode the new running statistics.  Returns both outputs."""
+    cpu = make().train(train)
+    card = make().train(train).cuda()
+    card.load_state_dict(cpu.state_dict())
+    args_card = tuple(a.cuda() if isinstance(a, torch.Tensor) else a for a in args_cpu)
+    with TopkReplay() as topk, CallReplay("furthest_point_sample", p2_ops) as fps, \
+            CallReplay("ball_query", p2_ops) as ball, torch.no_grad():
+        got = card(*args_card)
+        topk.replaying = fps.replaying = ball.replaying = True
+        want = cpu(*args_cpu)
+    flat = (lambda o: [o] if isinstance(o, torch.Tensor) else
+            [t for v in (o.values() if isinstance(o, dict) else o) for t in flat(v)])
+    pairs = list(zip(flat(got), flat(want)))
+    worst = 0.0
+    for g, w in pairs:
+        g = g.detach().cpu()
+        w = w.detach()
+        if w.dtype.is_floating_point:
+            check(bool(torch.isfinite(g).all()), f"{label}: output not finite")
+            check(torch.allclose(g, w, **tol), f"{label}: card and CPU differ")
+            worst = max(worst, float((g - w).abs().max()))
+        else:
+            check(torch.equal(g, w), f"{label}: integer output differs")
+    if train:
+        sd_card, sd_cpu = card.state_dict(), cpu.state_dict()
+        for k, w in sd_cpu.items():
+            if "running" in k:
+                check(torch.allclose(sd_card[k].cpu(), w, **tol), f"{label}: {k}")
+    print(f"[variants] {label}: {len(pairs)} outputs card = CPU, float max_abs_err "
+          f"{worst:.3g} ({tol}); CPU's own top-k / FPS / ball-query equal to the card's: "
+          f"{sum(r == 0 for r, _ in topk.differing)}/{len(topk.differing)}, "
+          f"{sum(fps.own_equal)}/{len(fps.own_equal)}, {sum(ball.own_equal)}/{len(ball.own_equal)}")
+    return got, want
+
+
+def _library_modules() -> None:
+    """SplineNet (both modes, train and eval), a multi-scale SA module, an
+    FP module, soft projection, ViT and the query decoder with its
+    Hungarian criterion, each once on the card and on the CPU at a small
+    size (TF32 off)."""
+    gen = torch.Generator().manual_seed(21)
+    pts = torch.rand(8, 512, 3, generator=gen) * 2 - 1
+    for mode in (0, 1):
+        for train in (False, True):
+            _card_vs_cpu_module(f"SplineNet mode {mode} {'train' if train else 'eval'}",
+                                lambda: DGCNNControlPoints(20, 20, mode), (pts,), train)
+    xyz, feats = torch.rand(2, 1024, 3, generator=gen), torch.randn(2, 1024, 6, generator=gen)
+    (new_xyz, new_f), _ = _card_vs_cpu_module(
+        "PointnetSAModuleMSG", lambda: p2_models.PointnetSAModuleMSG(
+            128, [0.1, 0.2], [16, 32], [[32, 32, 64], [64, 64, 128]], in_channels=6),
+        (xyz, feats), train=True)
+    # unknown points apart from the known ones: at a known point the 3-NN
+    # distance is 0 up to the expansion's rounding, and 1 / (dist + 1e-8)
+    # turns that rounding into percents of the interpolation weights
+    unknown = torch.rand(2, 1024, 3, generator=gen)
+    _card_vs_cpu_module("PointnetFPModule", lambda: p2_models.PointnetFPModule(
+        [128, 64], in_channels=192 + 6), (unknown, new_xyz.cpu(), feats, new_f.cpu()),
+        train=True)
+    cloud, query = torch.rand(2, 1024, 3, generator=gen), torch.rand(2, 256, 3, generator=gen)
+    _card_vs_cpu_module("SoftProjection", lambda: SoftProjection(8, 0.1),
+                        (cloud, query, torch.randn(2, 1024, 16, generator=gen),
+                         "project_and_propagate"))
+    img = torch.randn(4, 3, 32, 32, generator=gen)
+    _card_vs_cpu_module("ViT", lambda: ViT(32, 8, 10, 64, 2, 4, 128, dim_head=16), (img,))
+    x = torch.randn(2, 256, 32, generator=gen)
+    got, want = _card_vs_cpu_module("QueryDecoder", lambda: QueryDecoder(
+        num_layer=2, num_query=8, num_class=6, in_channel=32, d_model=64, nhead=4,
+        hidden_dim=128, use_pe=True), (x,))
+    gt_masks = (torch.rand(6, 256, generator=gen) < 0.2).float()
+    gt_cls = torch.tensor([0, 1, 2, 3, 4, 1])
+    gt_valid = torch.tensor([True, True, True, False, True, True])
+    for b in range(2):
+        res = [mask2former.criterion({"labels": o["labels"][b], "masks": o["masks"][b]},
+                                     gt_masks.to(dev), gt_cls.to(dev), gt_valid.to(dev), 6)
+               for o, dev in ((got, "cuda"), (want, "cpu"))]
+        check(torch.equal(res[0]["assign"].cpu(), res[1]["assign"]),
+              f"Hungarian assignment of item {b} differs between card and CPU")
+        for k in ("cls_loss", "dice_loss", "bce_loss", "loss"):
+            check(torch.allclose(res[0][k].cpu(), res[1][k], **TRAIN_LOSS), f"criterion {k}")
+        losses = ", ".join(f"{k} {float(v):.4g}" for k, v in res[1].items() if k != "assign")
+        print(f"[variants] criterion item {b}: assignment {res[1]['assign'].tolist()} equal on "
+              f"card and CPU; losses {losses} within {TRAIN_LOSS}")
+
+
+def _dual_serving(card_name: str, smi: str) -> int:
+    """The dual model at full width through ``Predictor``: ``predict_batch``
+    at B=4 (3 batches, clouds/s, peak memory, the CC kernel's launches with
+    the counts set to 0 just before and read just after), then
+    ``predict_stream`` over 2 batches equal to ``predict_batch``, and a
+    profile of two batches."""
+    cfg = Config(model_dict=DUAL)
+    n, b, reps = cfg.num_points, 4, 3
+    pred = Predictor(cfg, device="cuda")
+    check(isinstance(pred.model.offset_pred_block, OffsetPredModuleDual), "not the dual model")
+    push_weights(pred.model)
+    xyz, nrm = synth_clouds(cfg, b, seed=2)
+    pred.predict_batch(xyz, nrm)                          # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        batch = pred.predict_batch(xyz, nrm)
+    t_batch = time.perf_counter() - t0
+    launches = _launches()["masked_min_sweep"]
+    peak = torch.cuda.max_memory_allocated()
+    stream = list(pred.predict_stream([(xyz, nrm)] * 2, depth=2))
+    check(len(stream) == 2 * b and same_dicts(stream[:b], batch)
+          and same_dicts(stream[b:], batch), "dual predict_stream differs from predict_batch")
+    _profile(f"dual: 2 x predict_batch(B={b}, N={n})",
+             lambda: [pred.predict_batch(xyz, nrm) for _ in range(2)])
+    for r in batch:
+        check(r["pt_offsets"].shape == (n, 3) and r["instance_labels"].shape == (n,)
+              and all(np.isfinite(r[k]).all() for k in
+                      ("type_per_point", "param_per_point", "pt_offsets")), "dual outputs")
+    check(launches > 0, "masked_min_sweep was not launched on the dual serving path")
+    print(f"[variants] dual serving N={n} B={b}: predict_batch {b * reps / t_batch:.2f} "
+          f"clouds/s ({t_batch / reps * 1e3:.1f} ms/batch), peak memory {peak / 2**30:.2f} GiB, "
+          f"kept instances per cloud {[len(r['instances']) for r in batch]}; masked_min_sweep "
+          f"{launches} launches, {launches / (b * reps):.1f} sweeps per cloud; predict_stream "
+          f"(2 batches, depth 2) equal to predict_batch ({smi})")
+    return launches
+
+
+def _dual_training(log_dir: str, smi: str) -> int:
+    """The dual model at full width through ``Trainer.train_one_epoch``
+    (B=3): a warm-up epoch of 2 steps, then 2 + 5 steps of which the last 5
+    are timed (CUDA events), with the launch counts set to 0 just before and
+    read just after; then a profile of two steps."""
+    cfg = Config(model_dict=DUAL, log_dir=log_dir, data_path=log_dir)
+    warm, steps, b = 2, 5, cfg.batch_size
+    trainer = Trainer(cfg)
+    try:
+        check(isinstance(trainer.model.offset_pred_block, OffsetPredModuleDual),
+              "not the dual model")
+        push_weights(trainer.model)
+        trainer.train_one_epoch(0, num_batches=2)
+        torch.cuda.synchronize()
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with step_events() as marks:
+            history = trainer.train_one_epoch(1, num_batches=warm + steps)
+        launches = _launches()["masked_min_sweep"]
+        peak = torch.cuda.max_memory_allocated()
+        _profile(f"dual: 2 train steps (B={b}, N={cfg.num_points}, forward + backward + Adam)",
+                 lambda: trainer.train_one_epoch(2, num_batches=2))
+    finally:
+        trainer.close()
+    ms = marks[warm][0].elapsed_time(marks[-1][1]) / steps
+    per_step = [n for _, _, n, _, _ in marks]
+    totals = [float(m["total_loss"]) for m in history]
+    check(all(np.isfinite(float(v)) for m in history for v in m.values()),
+          f"a dual train step's loss is not finite: {totals}")
+    check(all(n > 0 for n in per_step), "a dual train step launched no CC sweep")
+    timed = sum(per_step[warm:])
+    print(f"[variants] dual training N={cfg.num_points} B={b}: {ms:.1f} ms/step over {steps} "
+          f"steps (CUDA events), {b * 1e3 / ms:.2f} examples/s, peak memory "
+          f"{peak / 2**30:.2f} GiB; total_loss {[round(t, 4) for t in totals]}; "
+          f"masked_min_sweep {launches} launches, {timed / steps:.1f} per timed step, "
+          f"{timed / (steps * b):.1f} sweeps per cloud ({smi})")
+    return launches
+
+
+def _sppnet_checks(smi: str) -> None:
+    """SPP-Net: the forward card against CPU at N=2048 (the card's top-k
+    replayed), 4 head-loss Adam steps on the card (finite, falling), and
+    the forward timed at N=7000, B=4."""
+    cfg = Config(model_dict="models.sppnet", num_points=2048)
+    batch = synth_batch(cfg, 2, seed=6)
+    xyz, nrm = torch.as_tensor(batch["gt_pc"]), torch.as_tensor(batch["gt_normal"])
+    _card_vs_cpu_module("SPP-Net N=2048", lambda: build_model(cfg).eval(), (xyz, nrm))
+    model = build_model(cfg).cuda()
+    opt = step_lib.make_optimizer(cfg, model.parameters())
+    tb = step_lib.batch_to_device(batch, "cuda")
+    losses = []
+    for _ in range(4):
+        opt.zero_grad()
+        loss = head_losses(model(tb["gt_pc"], tb["gt_normal"]), tb, cfg.max_instances)["total"]
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"SPP-Net head-loss steps: {losses}")
+
+    full = Config(model_dict="models.sppnet")
+    b = 4
+    model = build_model(full).cuda().eval()
+    x, n = (torch.as_tensor(a, device="cuda") for a in synth_clouds(full, b, seed=7))
+    with torch.inference_mode():
+        model(x, n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            out = model(x, n)
+        end.record()
+        end.synchronize()
+    ms = start.elapsed_time(end) / 5
+    check(all(bool(torch.isfinite(t).all()) for t in out), "SPP-Net outputs not finite")
+    print(f"[variants] SPP-Net head-loss Adam steps (N=2048, B=2) total {losses}; forward "
+          f"N={full.num_points} B={b}: {ms:.1f} ms ({b * 1e3 / ms:.1f} clouds/s, CUDA events "
+          f"over 5), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+
+
+def phase_variants(card_name: str, smi: str) -> dict:
+    """Phase 21: the model variants.  The dual-attention (``-2``) model card
+    against CPU (N=2048, B=2, TF32 off: the forward as phase 4 holds it, a
+    train step as phase 7 does, head in fp32 and bf16); at full width its
+    serving, training and ``train_new`` then ``--eval``; SPP-Net; the
+    library modules.  Returns the CC kernel's launches on the dual paths."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_card_vs_cpu(DUAL, "dual-vs-cpu")
+    cfg = Config(num_points=2048, batch_size=2, offset_variant="dual",
+                 grouping=GroupingConfig(class_numpoint_mean=(-1.0,) * 7,
+                                         similarity_threshold_inst=0.9),
+                 instance_head=InstanceHeadConfig(max_proposals=24))
+    model = PrimitiveNet(cfg)
+    push_weights(model)
+    batch = synth_batch(cfg, cfg.batch_size, seed=3)
+    r1 = torch.rand((2, 3), generator=torch.Generator().manual_seed(4))
+    for head_bf16 in (False, True):
+        res = train_step_card_vs_cpu(cfg, model.state_dict(), batch, r1, head_bf16)
+        res.pop("cpu_forward")
+        print(f"[dual-vs-cpu] train step, head {'bf16' if head_bf16 else 'fp32'}: "
+              + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                          for k, v in res.items()))
+    launches = {"dual serve": _dual_serving(card_name, smi)}
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as log_dir:
+        launches["dual train"] = _dual_training(log_dir, smi)
+    launches.update({f"dual {k}": v for k, v in phase_cli(smi, DUAL, "dual-cli").items()})
+    _sppnet_checks(smi)
+    _library_modules()
+    return launches
+
+
 def run_phase(number: int, fn, *args):
     """``fn(*args)``, its host-clock seconds printed."""
     t0 = time.perf_counter()
@@ -2044,12 +2330,13 @@ def main() -> int:
     run_phase(18, phase_knobs_card_vs_cpu, card_name)
     bench_res = run_phase(19, phase_bench, card_name, smi)
     extras = run_phase(20, phase_serving_extras, smi)
+    variants = run_phase(21, phase_variants, card_name, smi)
     row = kernel_rows[0]
     scene_train_mask = scene_train.pop("mask")
     row["launches_by_path"] = {"serve": row["launches"], "train": train_launches,
                                **cli_launches, "scene_serve": scene["launches"], **scene_train,
                                **{f"bench {k}": v for k, v in bench_res["launches"].items()},
-                               **extras}
+                               **extras, **variants}
     row["launches"] = sum(row["launches_by_path"].values())
     row["scene_mask"] = {k: scene[k] for k in ("n", "ms", "plain_ms", "bound_ms")}
     row["scene_train_mask"] = scene_train_mask

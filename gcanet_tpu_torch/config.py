@@ -192,15 +192,17 @@ def _refuse(unported: dict[str, bool], what: str) -> None:
 
 
 def check_supported(cfg: Config, scene: bool = False) -> None:
-    """Raise on config values whose model code paths are not ported yet:
-    ``offset_variant="dual"`` for ``PrimitiveNet``; for ``SoftGroupNet``
-    (``scene=True``) the scene knobs must each be 0 or 1."""
+    """Raise on config values no model code path takes: an
+    ``offset_variant`` other than ``"kpam"`` or ``"dual"`` for
+    ``PrimitiveNet``; for ``SoftGroupNet`` (``scene=True``) a scene knob
+    other than 0 or 1."""
     if scene:
         for name in ("scene_bf16", "semantic_only", "x4_split", "scene_soft_grouping"):
             if getattr(cfg, name) not in (0, 1):
                 raise ValueError(f"{name} must be 0 or 1, got {getattr(cfg, name)!r}")
         return
-    _refuse({"offset_variant": cfg.offset_variant != "kpam"}, "model option")
+    if cfg.offset_variant not in ("kpam", "dual"):
+        raise ValueError(f"offset_variant must be 'kpam' or 'dual', got {cfg.offset_variant!r}")
 
 
 def check_trainable(cfg: Config, scene: bool = False) -> None:

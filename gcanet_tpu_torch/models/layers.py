@@ -157,6 +157,38 @@ class MaskedBatchNorm(nn.Module):
         return y
 
 
+class BatchNorm(nn.Module):
+    """flax ``BatchNorm(momentum=0.9)`` over channels-last ``[..., C]``: in
+    training mode the statistics of the batch, over every axis but the
+    last, with flax's fast variance ``E[x^2] - E[x]^2`` (clipped at 0),
+    biased in the normalisation and in the running update alike
+    (``running = 0.9 * running + 0.1 * batch``; ``nn.BatchNorm*`` would
+    take the unbiased variance); in eval mode the running statistics."""
+
+    momentum = 0.9
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            xf = x.float()
+            mean = xf.mean(dim=dims)
+            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                for run, stat in ((self.running_mean, mean), (self.running_var, var)):
+                    run.mul_(self.momentum).add_((1 - self.momentum) * stat)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return ((x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias).to(x.dtype)
+
+
 class MLP(nn.Sequential):
     """Linear ReLU Linear (softgroup/model/blocks.py:9-27 with two layers and
     no norm); children 0 and 2 are the linears, as in the reference's keys."""

@@ -8,12 +8,15 @@ shifts in the voxelisation, no set aggregation.
 
 ``cfg.mode`` 5 takes xyz and normals; 0 and 3 take xyz only, and 3 adds a
 normal head whose output feeds the embedding head's normal-angle feature.
-``cfg.ablation`` replaces the offset module by an MLP, ``cfg.encoder_bf16``
-runs the encoder's and the embedding head's edge tensors in bf16, and
-``cfg.remat`` recomputes the encoder's blocks, the embedding head's conv
-block and the offset module in the backward.  Under ``precision="bf16"``
-the step calls the model on bf16 copies of its weights and inputs
-(``train/step.py``); the dtypes then follow the JAX package's.
+``cfg.ablation`` replaces the offset module by an MLP and
+``offset_variant="dual"`` by the ``-2`` model's dual-attention module
+(``offset_dual.py``); ``cfg.encoder_bf16`` runs the encoder's and the
+embedding head's edge tensors in bf16, and ``cfg.remat`` recomputes the
+encoder's blocks, the embedding head's conv block and the default offset
+module in the backward (the dual one is not recomputed, as in the JAX
+package).  Under ``precision="bf16"`` the step calls the model on bf16
+copies of its weights and inputs (``train/step.py``); the dtypes then
+follow the JAX package's.
 
 Every parameterised submodule is named after its key in the reference's
 ``model_state_dict`` (without the ``affinitynet.`` prefix), so a reference
@@ -35,6 +38,7 @@ from gcanet_tpu_torch.models.instance_head import InstanceHead, InstanceHeadOutp
 from gcanet_tpu_torch.models.layers import (MLP, Dense, GroupNorm, conv_gn_act,
                                             dense_gn, init_lecun_normal_, remat)
 from gcanet_tpu_torch.models.offset import OffsetPredModule
+from gcanet_tpu_torch.models.offset_dual import OffsetPredModuleDual
 from gcanet_tpu_torch.ops import grouping as grouping_ops
 from gcanet_tpu_torch.ops import knn as knn_ops
 from gcanet_tpu_torch.ops import voxelize as vox_ops
@@ -113,6 +117,8 @@ class PrimitiveNet(nn.Module):
         self.bn3 = GroupNorm(4, 128)
         if cfg.ablation:
             self.offset_linear = MLP(128, 3, hidden_features=128)
+        elif cfg.offset_variant == "dual":          # dgcnn-2.py:739-741
+            self.offset_pred_block = OffsetPredModuleDual(60, cfg.offset_keypoints)
         else:
             self.offset_pred_block = OffsetPredModule(cfg.offset_knn, cfg.offset_keypoints)
         # instance head: its children are registered here, at the top level
@@ -187,6 +193,8 @@ class PrimitiveNet(nn.Module):
                                   torch.cat([x_all, points6], dim=-1)))
         if cfg.ablation:
             pt_offsets = self.offset_linear(opc)                      # [B, N, 3]
+        elif cfg.offset_variant == "dual":
+            pt_offsets = self.offset_pred_block(xyz, opc, type_logits, embedding)
         elif cfg.remat:
             pt_offsets = remat(self.offset_pred_block, {"m": self.offset_pred_block},
                                xyz, opc, embedding)

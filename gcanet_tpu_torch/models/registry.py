@@ -2,8 +2,12 @@
 names to model constructors, with the JAX package's name table, so
 ``is_scene_model`` answers as there.
 
-The flagship and the SoftGroup scene family are ported; every other known
-name raises ``NotImplementedError``, and an unknown name raises ``KeyError``.
+Every name builds: the flagship ``PrimitiveNet`` (``-4``), its dual-attention
+variant (``-2``: ``offset_variant="dual"``), the SPP-Net baseline
+``PrimitiveNetSPP`` and the SoftGroup scene family.  An unknown name raises
+``KeyError``.  SPP-Net is a head-only model (no grouping, no instance head),
+so the predictors and trainers refuse it (``check_instance_model``); it
+trains through its own head-loss step.
 """
 
 from __future__ import annotations
@@ -19,15 +23,16 @@ def _flagship(cfg: Config):
     return PrimitiveNet(cfg)
 
 
-def _unported(what: str) -> Callable:
-    def build(cfg: Config):
-        raise NotImplementedError(f"model_dict={cfg.model_dict!r} ({what}) is not "
-                                  f"ported yet (see ROADMAP.md)")
-    return build
+def _variant2(cfg: Config):
+    from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
+
+    return PrimitiveNet(cfg.replace(offset_variant="dual"))
 
 
-_variant2 = _unported("PrimitiveNet with the dual-attention offset module")
-_sppnet = _unported("the SPP-Net baseline")
+def _sppnet(cfg: Config):
+    from gcanet_tpu_torch.models.sppnet import PrimitiveNetSPP
+
+    return PrimitiveNetSPP(cfg)
 
 
 def _softgroup_scene(cfg: Config):
@@ -52,6 +57,19 @@ _REGISTRY: Dict[str, Callable] = {
     "gcanet_tpu.models.sppnet": _sppnet,
     "models.sppnet": _sppnet,
 }
+
+
+def check_instance_model(cfg: Config, what: str) -> None:
+    """Raise before any work when ``cfg.model_dict`` names SPP-Net, which
+    ``what`` (a predictor or trainer) cannot run: it has no grouping or
+    instance head and takes no voxel-shift draw.  (The JAX package's
+    predictor and trainer fail on it with a ``TypeError`` at
+    initialisation.)"""
+    if _REGISTRY.get(cfg.model_dict) is _sppnet:
+        raise ValueError(f"{what} runs the instance models; model_dict={cfg.model_dict!r} "
+                         "is the head-only SPP-Net baseline (embedding, type, normal and "
+                         "parameter heads, no grouping or instance head): build it with "
+                         "build_model and train it with its head losses")
 
 
 def build_model(cfg: Config):

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from gcanet_tpu_torch.config import Config
-from gcanet_tpu_torch.models.registry import build_model
+from gcanet_tpu_torch.models.registry import build_model, check_instance_model
 from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
 from gcanet_tpu_torch.train import instances as inst_utils
 from gcanet_tpu_torch.utils.from_jax import load_reference_checkpoint
@@ -63,6 +63,7 @@ class Predictor:
                  checkpoint: str | Path | Mapping[str, torch.Tensor] | None = None,
                  device: str | torch.device | None = None,
                  cluster_mode: str = "grouping"):
+        check_instance_model(cfg, "Predictor")
         if cluster_mode != "grouping":
             raise NotImplementedError(f"cluster_mode={cluster_mode!r} is not ported "
                                       "yet; only 'grouping' (see ROADMAP.md)")

@@ -29,7 +29,7 @@ import torch
 from gcanet_tpu_torch.config import Config, check_supported, check_trainable
 from gcanet_tpu_torch.data.abc_dataset import ABCDataset, shard_bounds
 from gcanet_tpu_torch.data.synthetic import synth_batch
-from gcanet_tpu_torch.models.registry import build_model
+from gcanet_tpu_torch.models.registry import build_model, check_instance_model
 from gcanet_tpu_torch.train import metrics as metric_utils
 from gcanet_tpu_torch.train import step as step_lib
 from gcanet_tpu_torch.utils.transfer import fetch
@@ -126,6 +126,7 @@ class Trainer:
     synth = staticmethod(synth_batch)
 
     def __init__(self, cfg: Config, device: str | torch.device | None = None):
+        check_instance_model(cfg, type(self).__name__)
         (check_supported if cfg.eval else check_trainable)(cfg, scene=self.scene)
         self.cfg = cfg
         self.device = torch.device("cuda" if device is None else device)

@@ -24,6 +24,7 @@ from gcanet_tpu_torch.data.abc_dataset import ABCDataset
 from gcanet_tpu_torch.models import registry, softgroup_scene
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
 from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
+from gcanet_tpu_torch.models.sppnet import PrimitiveNetSPP
 from gcanet_tpu_torch.train.trainer import Trainer, prefetch_to_device
 
 torch.set_num_threads(1)
@@ -68,13 +69,19 @@ def test_registry_names_as_jax():
     tiny = Config(num_points=64, nn_nb=8, offset_knn=4, offset_keypoints=8)
     built = {"models.dgcnn-hais-concat-direct-4": PrimitiveNet,
              "gcanet_tpu.models.primitive_net": PrimitiveNet,
+             "models.dgcnn-hais-concat-direct-2": PrimitiveNet,
+             "gcanet_tpu.models.primitive_net_dual": PrimitiveNet,
+             "models.sppnet": PrimitiveNetSPP,
+             "gcanet_tpu.models.sppnet": PrimitiveNetSPP,
              "softgroup.model.softgroup": SoftGroupNet,
              "gcanet_tpu.models.softgroup_scene": SoftGroupNet}
+    assert set(built) == set(registry._REGISTRY)       # every name builds
     for name, cls in built.items():
-        assert isinstance(registry.build_model(tiny.replace(model_dict=name)), cls)
-    for name in set(registry._REGISTRY) - set(built):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            registry.build_model(tiny.replace(model_dict=name))
+        model = registry.build_model(tiny.replace(model_dict=name))
+        assert isinstance(model, cls), name
+        if cls is PrimitiveNet:
+            assert model.cfg.offset_variant == ("dual" if "2" in name or "dual" in name
+                                                else "kpam"), name
     with pytest.raises(KeyError):
         registry.build_model(tiny.replace(model_dict="models.unknown"))
 

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, and a tiny
-train step (also at ``precision="bf16"``), eval step, scene forward and
-scene train step against the CPU, and the reverse-gather backward against
-the scatter backward, on the card.
+train step (also at ``precision="bf16"`` and of the dual-attention
+variant), eval step, scene forward and scene train step against the CPU,
+and the reverse-gather backward against the scatter backward, on the card.
 
 Needs an NVIDIA GPU; skips without one.  Imports no JAX, so on a machine
 without it run it past the suite's conftest:
@@ -126,6 +126,32 @@ def test_bf16_step_card_equals_cpu(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     assert res["proposals"] > 0 and res["rest_grad_cosine"] >= 0.9
+
+
+def test_dual_step_card_equals_cpu(cuda):
+    """The dual-attention (``-2``) model: one tiny train step with the
+    instance head in fp32 on the card and on the CPU, the card's top-k
+    selections (the encoder's and the key-point kNN's) and proposals
+    replayed (``chip_smoke.train_step_card_vs_cpu``)."""
+    import chip_smoke
+
+    cfg = Config(num_points=256, batch_size=2, nn_nb=12, nn_nb_inner=8, offset_knn=6,
+                 offset_keypoints=24, max_instances=16, offset_variant="dual",
+                 grouping=GroupingConfig(radius=0.1, min_npoint=5,
+                                         class_numpoint_mean=(-1.0,) * 7,
+                                         similarity_threshold_inst=0.9),
+                 instance_head=InstanceHeadConfig(grid_size=8, max_proposals=24))
+    model = PrimitiveNet(cfg)
+    chip_smoke.push_weights(model)
+    r1 = torch.rand((2, 3), generator=torch.Generator().manual_seed(0))
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        res = chip_smoke.train_step_card_vs_cpu(cfg, model.state_dict(),
+                                                synth_batch(cfg, 2, seed=0), r1, False)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert res["proposals"] > 0
 
 
 def test_revgather_matches_scatter_on_card(cuda):

@@ -19,6 +19,10 @@ assert {"gcanet_tpu_torch.train." + m for m in
         ("scene_step", "scene_trainer", "instance_eval")} <= set(names)
 assert {"gcanet_tpu_torch.bench", "gcanet_tpu_torch.serve_http",
         "gcanet_tpu_torch.utils.precision"} <= set(names)
+assert {"gcanet_tpu_torch.ops.pointnet2", "gcanet_tpu_torch.losses.mask2former"} | {
+    "gcanet_tpu_torch.models." + m for m in
+    ("offset_dual", "sppnet", "splinenet", "pointnet2", "soft_projection", "transformer",
+     "query_decoder")} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -476,13 +476,15 @@ def test_knobs_accepted_and_still_refused():
                dict(shared_graph=True), dict(remat=True), dict(edge_backward="revgather"),
                dict(edge_backward="revgather:16"), dict(precision="bf16"),
                dict(grouping=GroupingConfig(**GROUP, cc_impl="pallas",
-                                            item_batch_mode="vmap"))):
+                                            item_batch_mode="vmap")),
+               dict(offset_variant="dual")):
         check_supported(_tcfg().replace(**kw))
         check_trainable(_tcfg().replace(**kw))
-    with pytest.raises(NotImplementedError, match="offset_variant.*ROADMAP"):
-        check_supported(_tcfg(offset_variant="dual"))
-    with pytest.raises(NotImplementedError, match="offset_variant.*ROADMAP"):
-        PrimitiveNet(_tcfg(offset_variant="dual"))
+    # the dual-attention variant is ported (tests/test_torch_variants.py)
+    assert type(PrimitiveNet(_tcfg(offset_variant="dual")).offset_pred_block).__name__ == \
+        "OffsetPredModuleDual"
+    with pytest.raises(ValueError, match="offset_variant"):
+        check_supported(_tcfg(offset_variant="triple"))
     with pytest.raises(NotImplementedError, match="mesh_shape.*ROADMAP"):
         check_trainable(_tcfg(mesh_shape="2"))
 

@@ -159,7 +159,8 @@ def test_predictor_refuses_unported_paths(setup):
         predictor.predict_type_sharded(xyz[0], nrm[0])
     with pytest.raises(NotImplementedError):
         Predictor(_port_cfg(), device="cpu", cluster_mode="meanshift")
-    with pytest.raises(NotImplementedError):
+    # SPP-Net builds, but has no grouping or instance head to serve
+    with pytest.raises(ValueError, match="Predictor runs the instance models.*SPP-Net"):
         Predictor(_port_cfg().replace(model_dict="models.sppnet"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

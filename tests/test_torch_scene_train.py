@@ -413,8 +413,7 @@ def test_check_trainable_scene():
                dict(encoder_bf16=True)):
         check_trainable(cfg.replace(**kw), scene=True)
         check_trainable(cfg.replace(**kw))        # the flagship trains with them too
-    with pytest.raises(NotImplementedError, match="offset_variant.*ROADMAP"):
-        check_trainable(cfg.replace(offset_variant="dual"))
+    check_trainable(cfg.replace(offset_variant="dual"))   # the flagship's -2 variant trains
     with pytest.raises(NotImplementedError, match="mesh_shape.*ROADMAP"):
         check_trainable(cfg.replace(mesh_shape="2"), scene=True)
     with pytest.raises(ValueError, match="semantic_only"):
