@@ -123,6 +123,20 @@ Phases (any failure ends the run with a non-zero exit):
      top-k, FPS and ball-query picks replayed (floats 1e-3, integers
      exact), and the Hungarian criterion (assignments exact, losses at
      phase 7's tolerance).
+ 22. the geometry package and meanshift serving.  ``Predictor(cluster_mode=
+     "meanshift")`` at the default ``Config`` (N=7000, 64-d embedding,
+     bandwidth 0.85): ``predict`` on 3 clouds after a warm-up with the
+     launch counts set to 0 just before and read just after (ms per cloud;
+     the forward and the mean shift apart by CUDA events; iterations, host
+     syncs, centres, peak memory), each cloud's labels the mean shift of its
+     returned embedding, and a trace through ``utils/profiling.trace``; the
+     mean shift card against CPU (N=7000 blobs and the card's N=2048
+     embedding, labels exactly); ``construction_affinity_matrix_type`` and
+     ``_normal`` at N=7000 (ms, peak memory) and card against CPU at N=2048;
+     ``simple_clusters`` on an N=8192 scene with the scannetv2 recipe,
+     card against CPU exactly, its launches counted from 0 and the sweep
+     timed on its mask; the fits, spline functions and ``arap_deform`` card
+     against CPU (see ``GEOMETRY_RTOL``).
 Weights are random from a seed, with pushes so that the path after
 grouping does real work (``push_weights``, ``push_scene_weights``).  Each
 phase prints its seconds.
@@ -137,6 +151,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -155,6 +170,7 @@ from gcanet_tpu_torch.losses import mask2former
 from gcanet_tpu_torch.config import (Config, GroupingConfig, InstanceHeadConfig,
                                      scene_grouping_defaults)
 from gcanet_tpu_torch.data.synthetic import synth_batch, synth_clouds, synth_scene_batch
+from gcanet_tpu_torch.geometry import affinity, fitting, spline
 from gcanet_tpu_torch.models import pointnet2 as p2_models
 from gcanet_tpu_torch.models.offset_dual import OffsetPredModuleDual
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
@@ -178,7 +194,7 @@ from gcanet_tpu_torch.train import step as step_lib
 from gcanet_tpu_torch.train import trainer as trainer_mod
 from gcanet_tpu_torch.train.scene_trainer import SceneTrainer
 from gcanet_tpu_torch.train.trainer import Trainer
-from gcanet_tpu_torch.utils import kernels
+from gcanet_tpu_torch.utils import kernels, profiling, timing
 from gcanet_tpu_torch.utils.transfer import fetch
 
 # memory rates of the cards this runs on (NVIDIA data sheets), bytes/s
@@ -249,6 +265,15 @@ HTTP_FLOAT = dict(rtol=1e-3, atol=1e-3)
 
 # the model variants (phase 21): the dual-attention model's registry name
 DUAL = "models.dgcnn-hais-concat-direct-2"
+
+# phase 22, card against CPU: the affinities (float32 elementwise, another
+# order of the kNN gather's sums; the kNN selections replayed); the fits,
+# spline functions and ARAP within 1e-3 relative and of the largest entry
+# (3x3 eigh, SVD and small solves in float32 through cuSOLVER).  The mean
+# shift's labels exactly, on the card's own embedding too (its distances
+# are float64 on both)
+AFFINITY = dict(rtol=1e-3, atol=1e-5)
+GEOMETRY_RTOL = 1e-3
 
 # ``--eval`` of a scene checkpoint against the training run's record: the
 # voxel means sum with float atomics on the card, so two evaluations of
@@ -971,7 +996,6 @@ def phase_training(log_dir: str) -> int:
 def _profile(label: str, fn) -> None:
     """Device time by op over ``fn()``, and the device's busy share of the
     host-clock window (kernel and copy time summed)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -979,6 +1003,12 @@ def _profile(label: str, fn) -> None:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    _print_profile(label, prof, wall_us)
+
+
+def _print_profile(label: str, prof, wall_us: float) -> None:
+    from torch.autograd import DeviceType
+
     events = prof.key_averages()
     kernels_ = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels_)
@@ -2289,6 +2319,353 @@ def phase_variants(card_name: str, smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------------ phase 22: geometry, meanshift
+
+def _events(n: int) -> list:
+    return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+
+def _meanshift_serving(smi: str) -> int:
+    """``Predictor(cluster_mode="meanshift")`` at the default ``Config``
+    (N=7000, 64-d embedding, bandwidth 0.85), pushed weights: ``predict`` on
+    3 clouds after a warm-up, with the launch counts and the mean shift's
+    host reads set to 0 just before and read just after; then the forward
+    and the mean shift timed apart (CUDA events) on the same clouds, and a
+    trace of one ``predict`` through ``utils/profiling.trace``."""
+    cfg = Config()
+    n, reps = cfg.num_points, 3
+    pred = Predictor(cfg, device="cuda", cluster_mode="meanshift")
+    push_weights(pred.model)
+    xyz, nrm = synth_clouds(cfg, reps + 1, seed=22)
+    pred.predict(xyz[reps], nrm[reps])                       # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    affinity.mean_shift.host_syncs = 0
+    torch.cuda.reset_peak_memory_stats()
+    results, iters = [], []
+    t0 = time.perf_counter()
+    for i in range(reps):
+        results.append(pred.predict(xyz[i], nrm[i]))
+        iters.append(affinity.mean_shift.iterations)
+    t_cloud = (time.perf_counter() - t0) / reps
+    launches = _launches()["masked_min_sweep"]
+    syncs = affinity.mean_shift.host_syncs
+    peak = torch.cuda.max_memory_allocated()
+    check(launches > 0, "masked_min_sweep was not launched on the meanshift serving path")
+    centres = []
+    for r in results:
+        labels = r["instance_labels"]
+        check(r["type_per_point"].shape == (n, 7) and r["param_per_point"].shape == (n, 22)
+              and r["pt_offsets"].shape == (n, 3) and r["embedding"].shape == (n, cfg.out_dim)
+              and labels.shape == (n,) and labels.dtype == np.int64,
+              "meanshift output shapes")
+        check(all(np.isfinite(r[k]).all() for k in
+                  ("type_per_point", "param_per_point", "pt_offsets", "embedding")),
+              "meanshift outputs not finite")
+        again = affinity.mean_shift(torch.as_tensor(r["embedding"], device="cuda")[None],
+                                    cfg.bandwidth)[0].cpu().numpy()
+        check(np.array_equal(again, labels), "meanshift labels are not the mean shift of "
+                                             "the returned embedding")
+        centres.append(int(labels.max()) + 1)
+        check(np.array_equal(np.unique(labels), np.arange(centres[-1])), "labels not 0..K-1")
+
+    fwd, shift = [], []
+    with torch.inference_mode():
+        for i in range(reps):
+            xt, nt = (torch.as_tensor(a[i][None], device="cuda") for a in (xyz, nrm))
+            e = _events(3)
+            e[0].record()
+            out = pred.model(xt, nt)
+            e[1].record()
+            affinity.mean_shift(out.embedding, cfg.bandwidth)
+            e[2].record()
+            e[2].synchronize()
+            fwd.append(e[0].elapsed_time(e[1]))
+            shift.append(e[1].elapsed_time(e[2]))
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as trace_dir:
+        t0 = time.perf_counter()
+        with profiling.trace(trace_dir) as prof:
+            pred.predict(xyz[0], nrm[0])
+            torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    check(len(traces) == 1, f"profiling.trace wrote {traces}")
+    _print_profile(f"meanshift predict(N={n}) via utils/profiling.trace", prof, wall_us)
+    print(f"[geometry] meanshift serving N={n} F={cfg.out_dim} bandwidth {cfg.bandwidth}: "
+          f"predict {t_cloud * 1e3:.1f} ms/cloud (host clock, {reps} clouds); forward "
+          f"{[round(v, 2) for v in fwd]} ms, mean shift {[round(v, 2) for v in shift]} ms "
+          f"(CUDA events); mean-shift iterations {iters} (largest {max(iters)}), host syncs "
+          f"{syncs / reps:.1f} per cloud; centres {centres}; peak memory "
+          f"{peak / 2**30:.2f} GiB; masked_min_sweep {launches} launches, "
+          f"{launches / reps:.1f} sweeps per cloud ({smi})")
+    return launches
+
+
+def _meanshift_card_vs_cpu() -> None:
+    """The mean shift on the card against its CPU run, labels exactly:
+    constructed blobs at N=7000, F=64, and the card's own embedding of a
+    pushed N=2048 cloud."""
+    rng = np.random.RandomState(22)
+    sizes = [1200, 1000, 900, 800, 700, 600, 500, 400, 300, 250, 150, 100, 60, 40]
+    centres = rng.randn(len(sizes), 64) * 2.0
+    x = np.concatenate([c + 0.3 / 8 * rng.randn(m, 64) for c, m in zip(centres, sizes)])
+    x = torch.as_tensor(x[rng.permutation(len(x))].astype(np.float32))[None]
+    e = _events(2)
+    e[0].record()
+    card = affinity.mean_shift(x.cuda(), 0.85)
+    e[1].record()
+    e[1].synchronize()
+    card_iters = affinity.mean_shift.iterations
+    t0 = time.perf_counter()
+    cpu = affinity.mean_shift(x, 0.85)
+    cpu_s = time.perf_counter() - t0
+    check(torch.equal(card.cpu(), cpu), f"mean shift of the N={x.shape[1]} blobs: card != CPU")
+    check(len(torch.unique(cpu)) == len(sizes), f"blobs: {len(torch.unique(cpu))} clusters")
+    print(f"[geometry] mean shift N={x.shape[1]} F=64, {len(sizes)} blobs: card labels equal the "
+          f"CPU's ({len(sizes)} clusters, {card_iters} iterations); card "
+          f"{e[0].elapsed_time(e[1]):.1f} ms, CPU {cpu_s * 1e3:.0f} ms")
+
+    cfg = Config(num_points=2048)
+    pred = Predictor(cfg, device="cuda", cluster_mode="meanshift")
+    push_weights(pred.model)
+    xyz, nrm = synth_clouds(cfg, 1, seed=23)
+    emb = torch.as_tensor(pred.predict(xyz[0], nrm[0])["embedding"])[None]
+    card = affinity.mean_shift(emb.cuda(), cfg.bandwidth)[0].cpu().numpy()
+    cpu = affinity.mean_shift(emb, cfg.bandwidth)[0].numpy()
+    check(np.array_equal(card, cpu), f"mean shift of the card's N={cfg.num_points} embedding: "
+                                     f"labels differ on {np.mean(card != cpu):.4%} of points")
+    print(f"[geometry] mean shift of the card's N={cfg.num_points} embedding: {cpu.max() + 1} "
+          f"clusters, labels equal on card and CPU")
+
+
+def _affinities(smi: str) -> None:
+    """``construction_affinity_matrix_type`` and ``_normal`` (knn 50) from the
+    full-width predictor's outputs (N=7000, B=1): ms (``utils/timing.
+    time_fn``) and peak memory; then card against CPU at N=2048 on the
+    card's outputs, the kNN selections replayed."""
+    for n in (7000, 2048):
+        cfg = Config(num_points=n)
+        model = PrimitiveNet(cfg)
+        push_weights(model)
+        model.cuda().eval()
+        xyz, nrm = (torch.as_tensor(a, device="cuda") for a in synth_clouds(cfg, 1, seed=24))
+        with torch.inference_mode():
+            out = model(xyz, nrm)
+        args = {"type": (xyz, out.type_per_point, out.param_per_point), "normal": (xyz, nrm)}
+        fns = {"type": affinity.construction_affinity_matrix_type,
+               "normal": functools.partial(affinity.construction_affinity_matrix_normal, knn=50)}
+        if n == 7000:
+            for name, fn in fns.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                a = fn(*args[name])
+                check(a.shape == (1, n, n) and bool(torch.isfinite(a).all()),
+                      f"{name} affinity shape or values")
+                peak = torch.cuda.max_memory_allocated() - base
+                del a
+                ms = timing.time_fn(fn, *args[name], iters=3, warmup=1) * 1e3
+                print(f"[geometry] construction_affinity_matrix_{name} N={n}: {ms:.2f} ms "
+                      f"(utils/timing.time_fn, CUDA events), {peak / 2**30:.2f} GiB above its "
+                      f"inputs ({smi})")
+            continue
+        for name, fn in fns.items():
+            with TopkReplay() as replay:
+                card = fn(*args[name]).cpu()
+                replay.replaying = True
+                cpu = fn(*(t.cpu() for t in args[name]))
+            err = float((card - cpu).abs().max())
+            check(torch.allclose(card, cpu, **AFFINITY), f"{name} affinity card vs CPU: {err:.3g}")
+            print(f"[geometry] construction_affinity_matrix_{name} N={n} card vs CPU: max abs "
+                  f"diff {err:.3g} within {AFFINITY}; top-k rows the CPU picks otherwise "
+                  f"(replayed): {replay.differing}")
+
+
+def _simple_clusters_scene(card_name: str, smi: str) -> dict:
+    """``simple_clusters`` on a synthetic N=8192 scene with the scannetv2
+    recipe's radius, ``npoint_thr`` and ``class_numpoint_mean`` (N/5): the
+    launch counts set to 0 just before and read just after; labels and keep
+    card against CPU exactly, on coordinates on a 2**-10 grid (their squared
+    distances are exact in float32, so no pair sits on the radius on one
+    device only); ms (``utils/timing.time_fn``); the sweep timed on its mask."""
+    cfg = scene_config(8192)
+    g, n = cfg.grouping, cfg.num_points
+    batch = synth_scene_batch(cfg, 1, seed=25)
+    xyz = torch.as_tensor(np.round(batch["xyz"][0] * 1024) / 1024, dtype=torch.float32)
+    sem = torch.as_tensor(batch["semantic"][0])
+    args = (g.radius, g.npoint_thr, g.class_numpoint_mean)
+    xt, st = xyz.cuda(), sem.cuda()
+    torch.cuda.synchronize()
+    _reset_launches()
+    labels, keep = grouping_ops.simple_clusters(xt, st, *args)
+    torch.cuda.synchronize()
+    launches = _launches()["masked_min_sweep"]
+    check(launches > 0, "masked_min_sweep was not launched by simple_clusters")
+    cpu = grouping_ops.simple_clusters(xyz, sem, *args)
+    check(torch.equal(labels.cpu(), cpu[0]) and torch.equal(keep.cpu(), cpu[1]),
+          "simple_clusters: card != CPU")
+    kept = len(torch.unique(cpu[0][cpu[1]]))
+    check(kept > 0, "simple_clusters kept no cluster")
+    ms = timing.time_fn(grouping_ops.simple_clusters, xt, st, *args, iters=5, warmup=1) * 1e3
+
+    nbr = grouping_ops.radius_neighbor_mask(xt, g.radius) & (st[:, None] == st[None, :])
+    lab0 = torch.arange(n, dtype=torch.int32, device="cuda")
+    check(torch.equal(cc.masked_min_sweep(nbr, lab0), cc.masked_min_sweep_plain(nbr, lab0)),
+          "sweep on the simple_clusters mask")
+    sweep_ms = time_graph(lambda: cc.masked_min_sweep(nbr, lab0), 100)
+    plain_ms = time_graph(lambda: cc.masked_min_sweep_plain(nbr, lab0), 10)
+    bound_ms = (n * n + 8 * n) / hbm_rate(card_name) * 1e3
+    print(f"[geometry] simple_clusters N={n} radius {g.radius} npoint_thr {g.npoint_thr} "
+          f"mean {g.class_numpoint_mean[0]}: {kept} clusters kept ({int(cpu[1].sum())} points); "
+          f"labels and keep card = CPU; {ms:.2f} ms (utils/timing.time_fn); masked_min_sweep "
+          f"{launches} launches = sweeps ({smi})")
+    print(f"[kernel] masked_min_sweep on the N={n} simple_clusters mask ({int(nbr.sum())} "
+          f"edges): {sweep_ms * 1e3:.2f} us/sweep, plain {plain_ms * 1e3:.2f} us, bound "
+          f"{bound_ms * 1e3:.2f} us, {bound_ms / sweep_ms:.1%} of the bound ({smi})")
+    return {"launches": launches, "n": n, "ms": sweep_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms}
+
+
+def _hold_geometry(label: str, card, cpu, up_to_sign: bool = False) -> float:
+    """Card against CPU within ``GEOMETRY_RTOL`` of the largest entry (and
+    relative); an eigenvector-derived output up to its sign.  -> max error."""
+    card = torch.as_tensor(card).detach().cpu().double()
+    cpu = torch.as_tensor(cpu).detach().cpu().double()
+    if up_to_sign:
+        card = card * torch.sign(torch.sum(card * cpu))
+    err = float((card - cpu).abs().max())
+    scale = float(cpu.abs().max())
+    check(torch.allclose(card, cpu, rtol=GEOMETRY_RTOL, atol=GEOMETRY_RTOL * scale),
+          f"{label}: card vs CPU differ by {err:.3g} (largest entry {scale:.3g})")
+    return err
+
+
+def _geometry_card_vs_cpu() -> None:
+    """The fits, spline sampling, footpoints, refit, PCA standardisation,
+    ``arap_deform`` and the open spline refinement, card against CPU at the
+    CPU tests' sizes (tests/test_torch_geometry.py)."""
+    rng = np.random.RandomState(26)
+    pts = (rng.randn(120, 3) * [1.0, 0.6, 0.2]).astype(np.float32)
+    w = rng.uniform(0.2, 1.0, (120, 1)).astype(np.float32)
+    theta, h = rng.uniform(0, 2 * np.pi, 300), rng.uniform(-1, 1, 300)
+    cyl = np.stack([0.4 * np.cos(theta), 0.4 * np.sin(theta), h], 1) + 0.01 * rng.randn(300, 3)
+    cyl_n = np.stack([np.cos(theta), np.sin(theta), 0.02 * rng.randn(300)], 1)
+    t = rng.uniform(0.2, 1.0, 300)
+    # the apex off the origin: its coordinates are held relative to their size
+    cone = np.stack([t * np.tan(0.5) * np.cos(theta), t * np.tan(0.5) * np.sin(theta), t], 1) \
+        + [0.3, -0.2, 0.5]
+    cone_n = np.stack([np.cos(0.5) * np.cos(theta), np.cos(0.5) * np.sin(theta),
+                       np.full(300, -np.sin(0.5))], 1)
+    w3 = rng.uniform(0.5, 1.0, (300, 1))
+    inputs = {k: torch.as_tensor(v, dtype=torch.float32) for k, v in dict(
+        pts=pts, w=w, cyl=cyl, cyl_n=cyl_n / np.linalg.norm(cyl_n, axis=1, keepdims=True),
+        cone=cone, cone_n=cone_n, w3=w3).items()}
+    errs = {}
+
+    def run(dev):
+        x = {k: v.to(dev) for k, v in inputs.items()}
+        return {"plane": fitting.fit_plane(x["pts"], x["w"]),
+                "sphere": fitting.fit_sphere(x["pts"], x["w"]),
+                "cylinder": fitting.fit_cylinder(x["cyl"], x["cyl_n"], x["w3"]),
+                "cone": fitting.fit_cone(x["cone"], x["cone_n"], x["w3"])}
+
+    card, cpu = run("cuda"), run("cpu")
+    sign = float(torch.sign(torch.sum(card["plane"][0].cpu() * cpu["plane"][0])))
+    errs["fit_plane"] = max(_hold_geometry("fit_plane normal", card["plane"][0], cpu["plane"][0],
+                                           True),
+                            _hold_geometry("fit_plane offset", sign * card["plane"][1],
+                                           cpu["plane"][1]))
+    errs["fit_sphere"] = max(_hold_geometry(f"fit_sphere {i}", a, b)
+                             for i, (a, b) in enumerate(zip(card["sphere"], cpu["sphere"])))
+    errs["fit_cylinder"] = max(
+        _hold_geometry("fit_cylinder axis", card["cylinder"][0], cpu["cylinder"][0], True),
+        *(_hold_geometry(f"fit_cylinder {i}", a, b)
+          for i, (a, b) in enumerate(zip(card["cylinder"][1:], cpu["cylinder"][1:]))))
+    errs["fit_cone"] = max(_hold_geometry(f"fit_cone {i}", a, b)
+                           for i, (a, b) in enumerate(zip(card["cone"], cpu["cone"])))
+
+    # the guarded eigh's backward: a loss that does not see the normal's sign
+    def plane_grad(dev):
+        p = inputs["pts"].to(dev).requires_grad_()
+        a, d = fitting.fit_plane(p, inputs["w"].to(dev))
+        (torch.sum(a.T @ a * torch.arange(9.0, device=dev).reshape(3, 3)) + d * d).backward()
+        return p.grad
+
+    errs["fit_plane gradient"] = _hold_geometry("fit_plane gradient", plane_grad("cuda"),
+                                                plane_grad("cpu"))
+
+    nu, nv = spline.uniform_knot_bspline(10, 10, 3, 3, 30)
+    u, v = np.meshgrid(np.linspace(0, 1, 10), np.linspace(0, 1, 10), indexing="ij")
+    cp = torch.as_tensor(np.stack([u, v, 0.3 * np.sin(3 * u) * np.cos(2 * v)], -1)
+                         .reshape(1, 100, 3), dtype=torch.float32)
+    surf = spline.sample_points_from_control_points(nu, nv, cp)
+    errs["sample_points"] = _hold_geometry(
+        "sample_points_from_control_points",
+        spline.sample_points_from_control_points(nu, nv, cp.cuda()), surf)
+    noisy = surf[0] + 0.001 * torch.as_tensor(rng.randn(900, 3), dtype=torch.float32)
+    # the footpoints are grid indices over (grid - 1): a CUDA division by a
+    # scalar multiplies by its reciprocal, one rounding off the CPU's, and
+    # the refit truncates u * (grid - 1) to an index, so the CPU refits at
+    # the card's footpoints
+    uv_card = spline.footpoint_uv(noisy.cuda(), surf[0].cuda(), 30)
+    uv_cpu = spline.footpoint_uv(noisy, surf[0], 30)
+    check(torch.allclose(uv_card.cpu(), uv_cpu, rtol=1e-6, atol=0), "footpoint_uv: card != CPU")
+    errs["refit_control_points"] = _hold_geometry(
+        "refit_control_points", spline.refit_control_points(noisy.cuda(), uv_card, nu, nv),
+        spline.refit_control_points(noisy, uv_card.cpu(), nu, nv))
+    cloud = torch.as_tensor(rng.randn(2, 80, 3) * [2.0, 1.0, 0.3], dtype=torch.float32)
+    std_card = spline.standardize_points(cloud.cuda())
+    std_cpu = spline.standardize_points(cloud)
+    axis_sign = torch.sign(torch.sum(std_card[3].cpu() * std_cpu[3], -1))        # [B, 3]
+    errs["standardize_points"] = max(
+        _hold_geometry("standardize_points aligned", std_card[0].cpu() * axis_sign[:, None, :],
+                       std_cpu[0]),
+        _hold_geometry("standardize_points rot", std_card[3].cpu() * axis_sign[:, :, None],
+                       std_cpu[3]),
+        *(_hold_geometry(f"standardize_points {i}", std_card[i], std_cpu[i]) for i in (1, 2)))
+    g = 10
+    u, v = np.meshgrid(np.linspace(0, 1, g), np.linspace(0, 1, g), indexing="ij")
+    grid = torch.as_tensor(np.stack([u.ravel(), v.ravel(), np.zeros(g * g)], 1))
+    targets = grid + torch.as_tensor([0.05, 0.05, 0.1]) + 0.02 * torch.as_tensor(
+        rng.randn(g * g, 3))
+    errs["arap_deform"] = _hold_geometry(
+        "arap_deform", spline.arap_deform(grid.cuda(), targets.cuda(), g, g, iters=8, w_fit=0.5),
+        spline.arap_deform(grid, targets, g, g, iters=8, w_fit=0.5))
+    reg40 = spline.regular_parameterization(40, 40)
+    cp_true = np.stack([u, v, 0.3 * np.sin(2 * u) * np.cos(2 * v)], -1).reshape(100, 3)
+    dense = spline.surface_basis_at(reg40, 10, 10, 2, 2) @ cp_true + 0.005 * rng.randn(1600, 3)
+    cp_pred = spline.fit_surface_kronecker(torch.as_tensor(dense),
+                                           torch.as_tensor(spline.surface_basis_at(
+                                               reg40, 20, 20, 3, 3)), reg=1e-4).numpy()
+    kw = dict(closed=False, new_cp_size=10, new_degree=2, n_params=1600, out_grid=20)
+    card_opt = spline.optimize_spline_kronecker(dense, cp_pred, device="cuda", **kw)
+    cpu_opt = spline.optimize_spline_kronecker(dense, cp_pred, device="cpu", **kw)
+    errs["optimize_spline_kronecker"] = max(_hold_geometry(f"optimize_spline_kronecker {i}", a, b)
+                                            for i, (a, b) in enumerate(zip(card_opt, cpu_opt)))
+    print("[geometry] card vs CPU (TF32 off), max abs differences, held at "
+          f"{GEOMETRY_RTOL} relative and of the largest entry; footpoints within a rounding: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+
+
+def phase_geometry(card_name: str, smi: str) -> tuple[dict, dict]:
+    """Phase 22: meanshift serving at full width (torch's default TF32
+    settings), then with TF32 off the mean shift, the affinities, the fits
+    and the spline functions card against CPU, and ``simple_clusters`` at
+    scene size.  Returns the CC kernel's launches on the meanshift serving
+    and ``simple_clusters`` runs, and the sweep's times on the latter's
+    mask."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    launches = {"meanshift serve": _meanshift_serving(smi)}
+    torch.backends.cudnn.allow_tf32 = False
+    _meanshift_card_vs_cpu()
+    _affinities(smi)
+    mask = _simple_clusters_scene(card_name, smi)
+    launches["simple_clusters"] = mask.pop("launches")
+    _geometry_card_vs_cpu()
+    return launches, mask
+
+
 def run_phase(number: int, fn, *args):
     """``fn(*args)``, its host-clock seconds printed."""
     t0 = time.perf_counter()
@@ -2331,16 +2708,18 @@ def main() -> int:
     bench_res = run_phase(19, phase_bench, card_name, smi)
     extras = run_phase(20, phase_serving_extras, smi)
     variants = run_phase(21, phase_variants, card_name, smi)
+    geometry, simple_mask = run_phase(22, phase_geometry, card_name, smi)
     row = kernel_rows[0]
     scene_train_mask = scene_train.pop("mask")
     row["launches_by_path"] = {"serve": row["launches"], "train": train_launches,
                                **cli_launches, "scene_serve": scene["launches"], **scene_train,
                                **{f"bench {k}": v for k, v in bench_res["launches"].items()},
-                               **extras, **variants}
+                               **extras, **variants, **geometry}
     row["launches"] = sum(row["launches_by_path"].values())
     row["scene_mask"] = {k: scene[k] for k in ("n", "ms", "plain_ms", "bound_ms")}
     row["scene_train_mask"] = scene_train_mask
     row["bench_mask"] = bench_res["mask"]
+    row["simple_clusters_mask"] = simple_mask
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

@@ -12,6 +12,9 @@ absorptions.
 connected-components run per grouped class per batch item over the radius
 graph restricted to that class's soft subset, one channel per grouped class.
 
+``simple_clusters``, the plain radius-graph clustering within each class
+with the per-class size test.
+
 Connected components come from ``ops/cc.py`` (the hand-written CUDA sweep on
 a card).
 """
@@ -269,6 +272,27 @@ def radius_neighbor_mask(coords: torch.Tensor, radius: float,
         nbr &= batch_ids[:, None] == batch_ids[None, :]
     return nbr
 
+
+
+@torch.no_grad()
+def simple_clusters(coords: torch.Tensor, semantic: torch.Tensor, radius: float,
+                    npoint_thr: float, class_numpoint_mean, max_iters: int = 64):
+    """The reference's ``bfs_cluster`` grouping: connected components of the
+    radius graph within each class (the CUDA sweep on a card), keeping the
+    components of at least ``npoint_thr * class_numpoint_mean[class]``
+    points.  ``coords [N, 3]``, ``semantic [N]`` -> (labels ``[N]`` int32,
+    the component's minimum point index or -1 where dropped; keep ``[N]``
+    bool)."""
+    same = semantic[:, None] == semantic[None, :]
+    nbr = radius_neighbor_mask(coords, radius) & same
+    labels = connected_components(nbr, max_iters)
+    n = labels.shape[0]
+    size = torch.zeros(n, dtype=torch.int32, device=coords.device).index_add_(
+        0, labels.long(), torch.ones(n, dtype=torch.int32, device=coords.device))[labels.long()]
+    mean_tbl = torch.as_tensor(class_numpoint_mean, dtype=torch.float32, device=coords.device)
+    thr = npoint_thr * mean_tbl[torch.clamp(semantic, 0, mean_tbl.shape[0] - 1).long()]
+    keep = size.to(torch.float32) >= thr
+    return torch.where(keep, labels, -1), keep
 
 @torch.no_grad()
 def build_soft_proposals(shifted: torch.Tensor,          # [B, N, 3]

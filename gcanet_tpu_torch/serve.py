@@ -5,8 +5,9 @@ Each predictor loads weights once, then ``predict`` / ``predict_batch`` /
 ``predict_stream`` run the model and the instance extraction on the device
 and copy the results to the host in one transfer per batch
 (``predict(return_masks=True)`` copies the mask scores and extracts on the
-host).  It runs on ``cuda`` unless the caller passes ``device="cpu"``; it
-never moves to the CPU on its own.
+host; the meanshift mode's ``predict`` adds the embedding's mean-shift
+labels, computed on the device, to that copy).  It runs on ``cuda`` unless
+the caller passes ``device="cpu"``; it never moves to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from gcanet_tpu_torch.config import Config
+from gcanet_tpu_torch.geometry.affinity import mean_shift
 from gcanet_tpu_torch.models.registry import build_model, check_instance_model
 from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
 from gcanet_tpu_torch.train import instances as inst_utils
@@ -51,8 +53,13 @@ def _stream(forward, finalize, batches: Iterable[Tuple[np.ndarray, np.ndarray]],
 
 
 class Predictor:
-    """Flagship-model serving with ``cluster_mode="grouping"``.
+    """Flagship-model serving.
 
+    ``cluster_mode``: ``"grouping"`` (the gated grouping and the instance
+    head's merged labels) or ``"meanshift"`` (``predict``'s
+    ``instance_labels`` are the mean shift of the embedding at
+    ``cfg.bandwidth``, computed on the device; the instances are the
+    head's).  ``predict_batch`` and ``predict_stream`` always group.
     ``checkpoint``: a reference-format ``.tar`` path, or a state_dict in the
     reference's or the port's layout (``utils/from_jax.py``); ``None`` keeps
     random weights seeded with ``cfg.seed``.  ``device``: default ``cuda``;
@@ -64,9 +71,10 @@ class Predictor:
                  device: str | torch.device | None = None,
                  cluster_mode: str = "grouping"):
         check_instance_model(cfg, "Predictor")
-        if cluster_mode != "grouping":
-            raise NotImplementedError(f"cluster_mode={cluster_mode!r} is not ported "
-                                      "yet; only 'grouping' (see ROADMAP.md)")
+        if cluster_mode not in ("grouping", "meanshift"):
+            raise ValueError(f"cluster_mode={cluster_mode!r}: expected 'grouping' or "
+                             "'meanshift'")
+        self.cluster_mode = cluster_mode
         self.device = _device(cfg, device, "Predictor")
         self.cfg = cfg
         self.model = build_model(cfg)
@@ -92,14 +100,19 @@ class Predictor:
     def _forward_masks(self, xyz: np.ndarray, normals: np.ndarray) -> List[np.ndarray]:
         """The forward of one cloud and one copy of what the host extraction
         reads: point_pid, semantic scores, the head's cls/iou/mask scores,
-        proposal validity, types, params, offsets, embedding."""
+        proposal validity, types, params, offsets, embedding; in the
+        meanshift mode also the embedding's mean-shift labels, computed on
+        the device before the copy."""
         xyz_t, nrm_t = (torch.as_tensor(np.ascontiguousarray(a, np.float32)[None],
                                         device=self.device) for a in (xyz, normals))
         out = self.model(xyz_t, nrm_t)
-        return fetch([out.proposals.point_pid, out.semantic_scores, out.instance.cls_scores,
-                      out.instance.iou_scores, out.instance.mask_scores, out.proposals.valid,
-                      out.type_per_point[0], out.param_per_point[0], out.pt_offsets,
-                      out.embedding[0]])
+        tensors = [out.proposals.point_pid, out.semantic_scores, out.instance.cls_scores,
+                   out.instance.iou_scores, out.instance.mask_scores, out.proposals.valid,
+                   out.type_per_point[0], out.param_per_point[0], out.pt_offsets,
+                   out.embedding[0]]
+        if self.cluster_mode == "meanshift":
+            tensors.append(mean_shift(out.embedding, self.cfg.bandwidth)[0])
+        return fetch(tensors)
 
     def predict(self, xyz: np.ndarray, normals: np.ndarray,
                 return_masks: bool = False, return_embedding: bool = False,
@@ -109,15 +122,20 @@ class Predictor:
         non-overlapping labels extracted on the device; ``return_masks``
         copies the head's mask scores to the host and runs ``get_instances``
         there, whose RLE masks may overlap as the reference's do (the
-        embedding is returned too).  ``panoptic`` adds the fused
-        ``class | id << 16`` labels (``panoptic_fusion``)."""
+        embedding is returned too).  The meanshift mode takes that path, with
+        the mean-shift labels of the embedding as ``instance_labels``.
+        ``panoptic`` adds the fused ``class | id << 16`` labels
+        (``panoptic_fusion``)."""
         n = np.shape(xyz)[0]
-        if return_masks:
-            (pid, sem, cls_s, iou_s, mask_s, valid, tpp, ppp, off,
-             emb) = self._forward_masks(xyz, normals)
+        if return_masks or self.cluster_mode == "meanshift":
+            fetched = self._forward_masks(xyz, normals)
+            pid, sem, cls_s, iou_s, mask_s, valid, tpp, ppp, off, emb = fetched[:10]
             preds = inst_utils.get_instances(pid, sem, cls_s, iou_s, mask_s, valid,
                                              self.cfg.num_primitives)
-            merged = inst_utils.merge_masks(preds) if preds else np.zeros(n, np.int32)
+            if self.cluster_mode == "meanshift":
+                merged = fetched[10]
+            else:
+                merged = inst_utils.merge_masks(preds) if preds else np.zeros(n, np.int32)
             result = {"type_per_point": tpp, "param_per_point": ppp, "pt_offsets": off,
                       "embedding": emb, "instances": preds, "instance_labels": merged}
         else:

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, and a tiny
 train step (also at ``precision="bf16"`` and of the dual-attention
 variant), eval step, scene forward and scene train step against the CPU,
-and the reverse-gather backward against the scatter backward, on the card.
+the reverse-gather backward against the scatter backward, and the mean
+shift and ``simple_clusters`` against the CPU, on the card.
 
 Needs an NVIDIA GPU; skips without one.  Imports no JAX, so on a machine
 without it run it past the suite's conftest:
@@ -14,9 +15,11 @@ import torch
 
 from gcanet_tpu_torch.config import Config, GroupingConfig, InstanceHeadConfig
 from gcanet_tpu_torch.data.synthetic import synth_batch, synth_scene_batch
+from gcanet_tpu_torch.geometry.affinity import mean_shift
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
 from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
 from gcanet_tpu_torch.ops import cc
+from gcanet_tpu_torch.ops import grouping
 from gcanet_tpu_torch.ops import knn as knn_ops
 from gcanet_tpu_torch.serve import ScenePredictor
 
@@ -237,3 +240,31 @@ def test_scene_train_step_card_equals_cpu(cuda, bf16):
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     assert res["proposals"] > 0
+
+
+def test_mean_shift_card_equals_cpu(cuda):
+    # blobs of several sizes in the embedding's 64 dimensions, two items
+    gen = torch.Generator().manual_seed(0)
+    sizes = torch.tensor([700, 500, 300, 200, 100, 60, 40])
+    centres = torch.randn(2, len(sizes), 64, generator=gen) * 2.0
+    x = centres.repeat_interleave(sizes, dim=1) + 0.04 * torch.randn(2, 1900, 64, generator=gen)
+    want = mean_shift(x, 0.85)
+    assert [len(torch.unique(w)) for w in want] == [len(sizes)] * 2
+    torch.testing.assert_close(mean_shift(x.to(cuda), 0.85).cpu(), want, rtol=0, atol=0)
+
+
+def test_simple_clusters_card_equals_cpu(cuda):
+    # coordinates on a 2**-10 grid: squared distances exact in float32
+    gen = torch.Generator().manual_seed(1)
+    centres = torch.rand(16, 3, generator=gen) * 0.8 + 0.1
+    pts = centres.repeat_interleave(150, 0) + 0.01 * torch.randn(2400, 3, generator=gen)
+    pts = torch.round(pts * 1024) / 1024
+    sem = torch.arange(16).repeat_interleave(150) % 5
+    args = (0.03, 0.3, (200.0, 100.0, 600.0, -1.0))
+    before = cc.masked_min_sweep.launches
+    got = grouping.simple_clusters(pts.to(cuda), sem.to(cuda), *args)
+    assert cc.masked_min_sweep.launches > before
+    want = grouping.simple_clusters(pts, sem, *args)
+    assert 0 < int(want[1].sum()) < 2400
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=0)

@@ -143,3 +143,35 @@ def test_rle_roundtrip_matches_jax():
     m = np.random.default_rng(4).random(1000) < 0.3
     assert tinst.rle_encode(m) == jinst.rle_encode(m)
     np.testing.assert_array_equal(tinst.rle_decode(jinst.rle_encode(m)), m.astype(np.uint8))
+
+
+def _scene_blobs(seed, n=400):
+    """Blobs of several classes on a 2**-10 grid (squared distances exact in
+    float32, so no pair sits on the radius in one framework only), some of
+    them touching a blob of another class, and class ids past the mean table."""
+    rng = np.random.RandomState(seed)
+    sizes = [90, 70, 60, 40, 30, 25, 20, 15, 10]
+    sizes.append(n - sum(sizes))
+    centers = rng.rand(len(sizes), 3) * 0.8 + 0.1
+    centers[1] = centers[0] + [0.03, 0, 0]          # touches blob 0, another class
+    pts = np.concatenate([c + 0.01 * rng.randn(m, 3) for c, m in zip(centers, sizes)])
+    sem = np.concatenate([np.full(m, k % 5) for k, m in enumerate(sizes)])
+    sem[sem == 4] = 7
+    return (np.round(pts * 1024) / 1024).astype(np.float32), sem.astype(np.int32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_simple_clusters_matches_jax(seed):
+    # the JAX test's own case, then multi-class scenes: labels and keep exactly
+    rng = np.random.RandomState(5)
+    coords = np.concatenate([0.01 * rng.randn(60, 3), 0.01 * rng.randn(10, 3) + 5.0])
+    cases = [(coords.astype(np.float32), np.zeros(70, np.int32), 0.2, 0.15, (200.0,)),
+             (*_scene_blobs(seed), 0.03, 0.3, (100.0, 60.0, 80.0, -1.0))]
+    for xyz, sem, radius, thr, means in cases:
+        want = jgrouping.simple_clusters(jnp.asarray(xyz), jnp.asarray(sem), radius, thr, means)
+        got = tgrouping.simple_clusters(torch.from_numpy(xyz), torch.from_numpy(sem), radius,
+                                        thr, means)
+        assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        assert 0 < int(got[1].sum()) < len(xyz)

@@ -1,4 +1,5 @@
-"""The PyTorch port and chip_smoke.py import neither JAX nor the JAX package.
+"""The PyTorch port and chip_smoke.py import neither JAX nor the JAX package,
+nor sklearn, which the port does not depend on (its mean shift is its own).
 
 Runs in a fresh interpreter (the test process itself has JAX loaded).
 ``gcanet_tpu_torch`` shares its prefix with ``gcanet_tpu``, so module names
@@ -23,11 +24,15 @@ assert {"gcanet_tpu_torch.ops.pointnet2", "gcanet_tpu_torch.losses.mask2former"}
     "gcanet_tpu_torch.models." + m for m in
     ("offset_dual", "sppnet", "splinenet", "pointnet2", "soft_projection", "transformer",
      "query_decoder")} <= set(names)
+assert {"gcanet_tpu_torch.geometry." + m for m in
+        ("primitive_dis", "fit_circle", "fitting", "affinity", "spline")} | {
+    "gcanet_tpu_torch.data.process_abc", "gcanet_tpu_torch.utils.io",
+    "gcanet_tpu_torch.utils.timing", "gcanet_tpu_torch.utils.profiling"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "gcanet_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "gcanet_tpu", "sklearn"))
 print(len(names), bad)
 assert not bad, bad
 """

@@ -157,8 +157,9 @@ def test_predictor_refuses_unported_paths(setup):
     predictor, xyz, nrm, _ = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         predictor.predict_type_sharded(xyz[0], nrm[0])
-    with pytest.raises(NotImplementedError):
-        Predictor(_port_cfg(), device="cpu", cluster_mode="meanshift")
+    # meanshift is ported (tests/test_torch_meanshift.py); an unknown mode is refused
+    with pytest.raises(ValueError, match="cluster_mode='spectral'"):
+        Predictor(_port_cfg(), device="cpu", cluster_mode="spectral")
     # SPP-Net builds, but has no grouping or instance head to serve
     with pytest.raises(ValueError, match="Predictor runs the instance models.*SPP-Net"):
         Predictor(_port_cfg().replace(model_dict="models.sppnet"), device="cpu")
