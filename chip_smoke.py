@@ -2666,6 +2666,429 @@ def phase_geometry(card_name: str, smi: str) -> tuple[dict, dict]:
     return launches, mask
 
 
+# ------------------------------------------------------- phase 23: data parallelism
+
+# two ranks of one gloo group share the one card (NCCL refuses two ranks on
+# one card); their times are not a scaling figure
+DP_WORLD = 2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _digest(model: torch.nn.Module) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_step(model, batch, r1) -> tuple:
+    """One data-parallel ``train_step`` from a fresh Adam: the group's
+    metrics and gradient, the new state, the CC launches (all on the CPU)."""
+    opt = step_lib.make_optimizer(model.cfg, model.parameters())
+    before = cc.masked_min_sweep.launches
+    metrics = step_lib.train_step(model, opt, batch, r1=r1)
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    return ({k: v.detach().cpu() for k, v in metrics.items()}, grads,
+            {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            cc.masked_min_sweep.launches - before)
+
+
+def dp_step_card_vs_cpu(rank: int, world: int, cfg: Config, state: dict, batch: dict,
+                        r1: torch.Tensor) -> dict:
+    """This rank's part of one data-parallel train step (instance head in
+    fp32) on the card and then on the CPU, from the same weights, global
+    batch and grid shift, the card's top-k and proposals replayed on the
+    CPU: the group's losses (``TRAIN_LOSS``), gradient (``TRAIN_GRAD_RTOL``,
+    the instance gradient's atol share, as the gradient holds it), batch
+    statistics (``TRAIN_STATS``) and new weights (within 2 lr of each other:
+    Adam's first step moves a weight by about lr).  Raises on any out of
+    tolerance; returns the worst errors."""
+    from gcanet_tpu_torch.parallel.dist import local_shard
+
+    models, batches = {}, {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = PrimitiveNet(cfg).to(dev)
+        models[dev].load_state_dict(state)
+        models[dev].instance_head.compute_bf16 = False
+        batches[dev] = step_lib.batch_to_device(local_shard(batch, rank, world), dev)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with TopkReplay() as topk, CallReplay() as props:
+            card = _dp_step(models["cuda"], batches["cuda"], r1.cuda())
+            topk.replaying = props.replaying = True
+            cpu = _dp_step(models["cpu"], batches["cpu"], r1.cpu())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    res = {"launches": card[3], "cpu_proposals_equal": props.own_equal,
+           "topk_rows_differing": topk.differing, "num_pos": float(cpu[0]["num_pos"])}
+    check(res["num_pos"] > 0, "the data-parallel step's instance path did no work")
+    worst = 0.0
+    for k, w in cpu[0].items():
+        g = card[0][k]
+        check(bool(torch.isfinite(g)) and torch.allclose(g, w, **TRAIN_LOSS),
+              f"data-parallel {k}: card {float(g)} CPU {float(w)}")
+        worst = max(worst, float((g - w).abs()) / max(abs(float(w)), 1e-12))
+    res["loss_max_rel_err"] = worst
+    res["grad_atol_share_needed"], res["grad_max_rel_l2"] = _hold_gradients(
+        f"dp-vs-cpu rank {rank}", "group", cpu[1], card[1], TRAIN_GRAD_ATOL_SHARE["inst"])
+    stat_err = weight_err = 0.0
+    for k, w in cpu[2].items():
+        g = card[2][k]
+        if "running" in k:
+            check(torch.allclose(g, w, **TRAIN_STATS), f"data-parallel statistic {k}")
+            stat_err = max(stat_err, float((g - w).abs().max()))
+        elif g.is_floating_point():
+            weight_err = max(weight_err, float((g - w).abs().max()))
+    check(weight_err <= 2 * cfg.learning_rate + 1e-6, f"new weights {weight_err} apart")
+    res["stats_max_abs_err"], res["weights_max_abs_err"] = stat_err, weight_err
+    res["digest"] = _digest(models["cuda"])
+    return res
+
+
+@contextlib.contextmanager
+def _first_cc_mask(store: list):
+    """While open, the first adjacency ``connected_components`` gets is
+    copied into ``store``."""
+    real = grouping_ops.connected_components
+
+    def spy(nbr, max_iters=64):
+        if not store:
+            store.append(nbr.clone())
+        return real(nbr, max_iters)
+
+    grouping_ops.connected_components = spy
+    try:
+        yield store
+    finally:
+        grouping_ops.connected_components = real
+
+
+def _timed_epoch(trainer, module, name: str, warm: int, steps: int) -> dict:
+    """A warm-up epoch of ``warm`` steps, then an epoch of ``warm + steps``
+    whose last ``steps`` are timed (CUDA events), the launch counts and
+    peak memory counted from 0 just before."""
+    trainer.train_one_epoch(0, num_batches=warm)
+    torch.cuda.synchronize()
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with step_events(module, name) as marks:
+        history = trainer.train_one_epoch(1, num_batches=warm + steps)
+    return {"ms": marks[warm][0].elapsed_time(marks[-1][1]) / steps,
+            "per_step_launches": [k for _, _, k, _, _ in marks],
+            "launches": _launches()["masked_min_sweep"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "losses": [{k: float(v) for k, v in m.items()} for m in history]}
+
+
+def dp_training(rank: int, world: int, log_dir: str, card_name: str) -> dict:
+    """Flagship training at the default ``Config`` on this rank (global
+    B=4): a timed epoch, the rank-strided evaluation of the 8 eval clouds
+    (merged; rank 0 keeps the checkpoint it evaluated), and the sweep timed
+    on a mask of one more data-parallel step (rank 0, the other rank
+    waiting)."""
+    import torch.distributed as dist
+
+    cfg = Config(log_dir=log_dir, data_path=log_dir, batch_size=2 * DP_WORLD,
+                 mesh_shape=str(DP_WORLD))
+    trainer = Trainer(cfg, device="cuda:0")
+    try:
+        push_weights(trainer.model)
+        out = _timed_epoch(trainer, step_lib, "train_step", 2, 5)
+        t0 = time.perf_counter()
+        trainer.test_one_epoch(1)
+        out["eval_s"] = time.perf_counter() - t0
+        out["checkpoint"] = trainer.save_checkpoint(2, tag="dp")     # every rank; 0 writes
+        if rank == 0:
+            out["record"] = _scene_records(log_dir)[-1]
+        with _first_cc_mask([]) as masks:
+            trainer.train_one_epoch(2, num_batches=1)
+        out["digest"] = _digest(trainer.model)
+    finally:
+        trainer.close()
+    dist.barrier()
+    if rank == 0:
+        nbr = masks[0]
+        n = nbr.shape[0]
+        labels = torch.randperm(n, generator=torch.Generator().manual_seed(0)).to(
+            torch.int32).cuda()
+        err = int((cc.masked_min_sweep(nbr, labels).long()
+                   - cc.masked_min_sweep_plain(nbr, labels).long()).abs().max())
+        out["mask"] = {"n": n, "max_abs_err": err, "edges": int(nbr.sum()),
+                       "ms": time_graph(lambda: cc.masked_min_sweep(nbr, labels), 100),
+                       "plain_ms": time_graph(lambda: cc.masked_min_sweep_plain(nbr, labels),
+                                              10),
+                       "bound_ms": (n * n + 8 * n) / hbm_rate(card_name) * 1e3}
+    dist.barrier()
+    return out
+
+
+def dp_scene_training(rank: int, world: int, log_dir: str) -> dict:
+    """Scene training at full width on this rank (N=8192, global B=8, grid
+    64): a timed epoch of 3 steps after 2."""
+    cfg = scene_train_config(log_dir).replace(mesh_shape=str(DP_WORLD))
+    trainer = SceneTrainer(cfg, device="cuda:0")
+    try:
+        push_scene_weights(trainer.model)
+        out = _timed_epoch(trainer, scene_step, "scene_train_step", 2, 3)
+        out["digest"] = _digest(trainer.model)
+    finally:
+        trainer.close()
+    return out
+
+
+def dp_bench(rank: int, world: int) -> dict:
+    """``GCA_BENCH_MESH=2`` at the bench's full width (B=10 global, N=8192,
+    5 timed steps): the line (rank 0 prints it), CC launches, peak memory."""
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    with bench_env(GCA_BENCH_MESH=str(DP_WORLD), GCA_BENCH_ITERS="5"), \
+            contextlib.redirect_stdout(out):
+        row = bench.main([], device="cuda:0")
+    return {"row": row, "printed": out.getvalue().splitlines(),
+            "launches": _launches()["masked_min_sweep"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+DP_JOBS = {f.__name__: f for f in (dp_step_card_vs_cpu, dp_training, dp_scene_training,
+                                    dp_bench)}
+
+
+def dp_rank(rank: int, world: int, port: int, jobs_path: str, queue) -> None:
+    """One rank of a gloo group on the card (started with ``spawn``): the
+    jobs saved at ``jobs_path`` (``[(key, job, kwargs)]``) in order;
+    ``(rank, {key: result})`` on ``queue``, or ``(rank, traceback)``."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from gcanet_tpu_torch.parallel.dist import init_dist
+
+    try:
+        init_dist(f"127.0.0.1:{port}", world, rank, backend="gloo")
+        out = {}
+        for key, name, kw in torch.load(jobs_path, weights_only=False):
+            t0 = time.perf_counter()
+            out[key] = DP_JOBS[name](rank, world, **kw)
+            out[key + ":s"] = time.perf_counter() - t0
+        queue.put((rank, out))
+    except BaseException:               # noqa: BLE001 -- the parent raises it
+        queue.put((rank, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(jobs: list, root: str, timeout: float = 600.0) -> list[dict]:
+    """``jobs`` on ``DP_WORLD`` spawned ranks; their results in rank order.
+    A rank that fails, or does not answer in ``timeout`` seconds, fails the
+    run; every rank is ended before this returns."""
+    import multiprocessing
+    import queue as queue_mod
+
+    path = os.path.join(root, "dp_jobs.pt")
+    torch.save(jobs, path)
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=dp_rank, args=(r, DP_WORLD, port, path, results))
+             for r in range(DP_WORLD)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.perf_counter() + timeout
+        while len(got) < DP_WORLD:
+            try:
+                rank, res = results.get(timeout=max(1.0, deadline - time.perf_counter()))
+            except queue_mod.Empty:
+                raise RuntimeError(f"ranks {sorted(set(range(DP_WORLD)) - set(got))} did "
+                                   f"not answer in {timeout:.0f} s") from None
+            check(isinstance(res, dict), f"rank {rank} failed:\n{res}")
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    return [got[r] for r in range(DP_WORLD)]
+
+
+def _dp_serving(smi: str) -> dict:
+    """``Predictor`` (default ``Config``, B=4) and ``ScenePredictor``
+    (N=8192, B=8, grid 64) on ``["cuda:0", "cuda:0"]``, the launch counts
+    from 0 just before each data-parallel call, against one device's
+    ``predict_batch`` on the same weights: on the chunks' own shapes (the
+    batch's proposals checked to stay under the cap, so the chunks group as
+    the whole batch would), held as phase 5 and 13 hold a stream against
+    its batches; on the whole batch the first differing key is printed
+    (another batch shape takes other cuBLAS kernels, whose last bits may
+    move a hard threshold; the CPU tests hold that case exactly)."""
+    out = {}
+    devices = ["cuda:0"] * DP_WORLD
+    for family, b in (("abc", 4), ("scene", 8)):
+        if family == "abc":
+            cfg = Config(batch_size=b)
+            one = Predictor(cfg)
+            push_weights(one.model)
+            two = Predictor(cfg.replace(mesh_shape=str(DP_WORLD)), one.model.state_dict(),
+                            device=devices)
+            xyz, aux = synth_clouds(cfg, b, seed=7)
+        else:
+            cfg = scene_config(8192).replace(batch_size=b)
+            one = ScenePredictor(cfg)
+            push_scene_weights(one.model)
+            two = ScenePredictor(cfg.replace(mesh_shape=str(DP_WORLD)), one.model.state_dict(),
+                                 device=devices)
+            raw = synth_scene_batch(cfg, b, seed=7)
+            xyz, aux = raw["xyz"], raw["feats"]
+        with torch.inference_mode():
+            num = int(one.model(torch.as_tensor(xyz, device="cuda"),
+                                torch.as_tensor(aux, device="cuda")).proposals.num)
+        check(num < cfg.instance_head.max_proposals, f"the {family} batch's {num} proposals "
+              f"reach the cap {cfg.instance_head.max_proposals}")
+        k = b // DP_WORLD
+        want = [r for i in range(DP_WORLD)
+                for r in one.predict_batch(xyz[i * k:(i + 1) * k], aux[i * k:(i + 1) * k])]
+        whole = one.predict_batch(xyz, aux)
+        two.predict_batch(xyz, aux)                     # warm-up
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        got = two.predict_batch(xyz, aux)
+        wall = time.perf_counter() - t0
+        launches = _launches()["masked_min_sweep"]
+        check(launches > 0, f"data-parallel {family} serving launched no CC sweep")
+        if family == "abc":
+            check(same_dicts(got, want), "data-parallel predict_batch differs from one device's")
+            verdict = "equal (integers exact, floats 1e-3)"
+        else:
+            verdict = _scene_stream_check(got, [want])
+        kept = sum(len(r["instances"]) for r in got)
+        check(kept > 0, f"data-parallel {family} serving kept no instance")
+        differ = {i: dict_difference(g, w) for i, (g, w) in enumerate(zip(got, whole))}
+        print(f"[dp-serve] {family}: B={b} over {devices} ({num} proposals, cap "
+              f"{cfg.instance_head.max_proposals}): {b / wall:.2f} items/s (host clock, both "
+              f"chunks on one card), {launches} CC launches, {kept} instances; against one "
+              f"device's predict_batch on the chunks' shapes: {verdict}; on the whole batch, "
+              f"items differing (first key): {({i: d for i, d in differ.items() if d})} ({smi})")
+        out[f"dp {family} serve"] = launches
+    return out
+
+
+def phase_data_parallel(card_name: str, smi: str) -> tuple[dict, dict]:
+    """Phase 23: the data-parallel paths on the card: two ranks of a gloo
+    group share ``cuda:0`` (the four-card machine is not this run's), so
+    every time here is two ranks on one card, not a scaling figure.  The
+    ranks take a step card against CPU (N=2048, global B=4), flagship
+    training through ``Trainer`` (default ``Config``, global B=4) with its
+    rank-strided evaluation merged, scene training (N=8192, global B=8,
+    grid 64) and a ``GCA_BENCH_MESH=2`` bench line; the merged evaluation
+    is held against one process's on the checkpoint it evaluated, the
+    ranks' weights bit for bit against each other, the sweep against its
+    plain version on a data-parallel step's mask; then both predictors
+    serve over ``["cuda:0", "cuda:0"]``.  Returns the CC launches by path
+    and the mask's sweep times."""
+    print("[dp] two gloo ranks share one card: the times below are not a scaling figure")
+    cfg = Config(num_points=2048, batch_size=2 * DP_WORLD, mesh_shape=str(DP_WORLD),
+                 grouping=GroupingConfig(class_numpoint_mean=(-1.0,) * 7,
+                                         similarity_threshold_inst=0.9),
+                 instance_head=InstanceHeadConfig(max_proposals=24))
+    model = PrimitiveNet(cfg)
+    push_weights(model)
+    r1 = torch.rand((2, 3), generator=torch.Generator().manual_seed(4))
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as root:
+        jobs = [("step", "dp_step_card_vs_cpu",
+                 dict(cfg=cfg, state=model.state_dict(),
+                      batch={k: v for k, v in synth_batch(cfg, cfg.batch_size, seed=3).items()
+                             if k != "index"}, r1=r1)),
+                ("train", "dp_training", dict(log_dir=os.path.join(root, "train"),
+                                              card_name=card_name)),
+                ("scene", "dp_scene_training", dict(log_dir=os.path.join(root, "scene"))),
+                ("bench", "dp_bench", {})]
+        ranks = run_ranks(jobs, root)
+        step = [r["step"] for r in ranks]
+        print(f"[dp-vs-cpu] N={cfg.num_points} global B={cfg.batch_size}, head fp32, per rank: "
+              + "; ".join(", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                                    for k, v in r.items() if k != "digest") for r in step))
+        check(step[0]["digest"] == step[1]["digest"], "the ranks' weights differ after the step")
+        train = [r["train"] for r in ranks]
+        scene = [r["scene"] for r in ranks]
+        for label, runs, per in (("train", train, 2), ("scene-train", scene, 4)):
+            for rank, r in enumerate(runs):
+                steps = len(r["per_step_launches"])
+                print(f"[dp-{label}] rank {rank}: {r['ms']:.1f} ms/step ({per} items per rank, "
+                      f"{per * DP_WORLD} per step), peak memory {r['peak_gib']:.2f} GiB, "
+                      f"CC launches per rank-step {r['per_step_launches']} ({r['launches']} in "
+                      f"{steps} steps), {r['digest'][:12]} ({smi})")
+                for i, m in enumerate(r["losses"]):
+                    check(all(np.isfinite(v) for v in m.values()),
+                          f"dp {label} rank {rank} step {i}: {m}")
+                check(r["launches"] > 0, f"dp {label} rank {rank} launched no CC sweep")
+            print(f"[dp-{label}] last step's losses (the group's means, equal on both ranks): "
+                  + ", ".join(f"{k} {v:.4g}" for k, v in runs[0]["losses"][-1].items()))
+            check(runs[0]["losses"] == runs[1]["losses"], f"dp {label}: the ranks' losses differ")
+            check(runs[0]["digest"] == runs[1]["digest"], f"dp {label}: the ranks' weights differ")
+
+        # the merged rank-strided evaluation against one process's
+        record = train[0]["record"]
+        one_dir = os.path.join(root, "one")
+        single = Trainer(Config(log_dir=one_dir, data_path=one_dir))
+        try:
+            single.model.load_state_dict(torch.load(train[0]["checkpoint"], map_location="cuda",
+                                                    weights_only=True)["model_state_dict"])
+            single.test_one_epoch(1)
+        finally:
+            single.close()
+        want = _scene_records(one_dir)[-1]
+        check(set(record) == set(want), f"merged eval keys {sorted(record)}")
+        for k, w in want.items():
+            if k in ("step", "time"):
+                continue
+            tol = dict(rtol=EVAL_REPEAT_LOSS_RTOL, atol=1e-7) if "loss" in k or k == "num_pos" \
+                else dict(rtol=1e-9, atol=1e-12)
+            check(np.isclose(record[k], w, **tol), f"merged eval {k}: {record[k]} vs {w}")
+        print(f"[dp-eval] 8 clouds, 4 per rank, merged: equal to one process's on the same "
+              f"checkpoint (losses rtol {EVAL_REPEAT_LOSS_RTOL}, metrics 1e-9): miou "
+              f"{record['miou']:.4f} type_miou {record['type_miou']:.4f}; "
+              f"{train[0]['eval_s'] / 4 * 1e3:.1f} ms per cloud per rank (host clock)")
+
+        bench_rows = [r["bench"] for r in ranks]
+        check(bench_rows[0]["printed"] == [json.dumps(bench_rows[0]["row"])]
+              and bench_rows[1]["printed"] == [], "the dp bench's rank 0 prints one line")
+        row = bench_rows[0]["row"]
+        check(row["devices"] == DP_WORLD and row["value"] > 0, f"dp bench {row}")
+        print(f"[dp-bench] GCA_BENCH_MESH={DP_WORLD}: {json.dumps(row)}; peak memory per rank "
+              f"{[round(r['peak_gib'], 2) for r in bench_rows]} GiB, CC launches per rank "
+              f"{[r['launches'] for r in bench_rows]} (6 steps) ({smi})")
+    mask = train[0]["mask"]
+    check(mask["max_abs_err"] == 0, "masked_min_sweep differs from its plain version on the "
+                                    "data-parallel mask")
+    print(f"[kernel] masked_min_sweep on a data-parallel training mask (rank 0, N={mask['n']}, "
+          f"{mask['edges']} edges): max_abs_err 0, {mask['ms'] * 1e3:.2f} us/sweep, plain "
+          f"{mask['plain_ms'] * 1e3:.2f} us, bound {mask['bound_ms'] * 1e3:.2f} us ({smi})")
+    launches = {"dp step (2 ranks)": sum(r["launches"] for r in step),
+                "dp train (2 ranks)": sum(r["launches"] for r in train),
+                "dp scene train (2 ranks)": sum(r["launches"] for r in scene),
+                "dp bench (2 ranks)": sum(r["launches"] for r in bench_rows)}
+    launches.update(_dp_serving(smi))
+    print(f"[dp] rank seconds: " + ", ".join(f"{k} {ranks[0][k]:.1f}" for k in ranks[0]
+                                            if k.endswith(":s")))
+    return launches, {k: mask[k] for k in ("n", "ms", "plain_ms", "bound_ms")}
+
+
 def run_phase(number: int, fn, *args):
     """``fn(*args)``, its host-clock seconds printed."""
     t0 = time.perf_counter()
@@ -2709,17 +3132,19 @@ def main() -> int:
     extras = run_phase(20, phase_serving_extras, smi)
     variants = run_phase(21, phase_variants, card_name, smi)
     geometry, simple_mask = run_phase(22, phase_geometry, card_name, smi)
+    dp_launches, dp_mask = run_phase(23, phase_data_parallel, card_name, smi)
     row = kernel_rows[0]
     scene_train_mask = scene_train.pop("mask")
     row["launches_by_path"] = {"serve": row["launches"], "train": train_launches,
                                **cli_launches, "scene_serve": scene["launches"], **scene_train,
                                **{f"bench {k}": v for k, v in bench_res["launches"].items()},
-                               **extras, **variants, **geometry}
+                               **extras, **variants, **geometry, **dp_launches}
     row["launches"] = sum(row["launches_by_path"].values())
     row["scene_mask"] = {k: scene[k] for k in ("n", "ms", "plain_ms", "bound_ms")}
     row["scene_train_mask"] = scene_train_mask
     row["bench_mask"] = bench_res["mask"]
     row["simple_clusters_mask"] = simple_mask
+    row["data_parallel_mask"] = dp_mask
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

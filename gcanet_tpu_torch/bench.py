@@ -1,7 +1,7 @@
-"""Train-step throughput of the port on one device (port of the root
-``bench.py``).
+"""Train-step throughput of the port (port of the root ``bench.py``).
 
     python -m gcanet_tpu_torch.bench [--device cpu]
+    GCA_BENCH_MESH=N torchrun --nproc_per_node N -m gcanet_tpu_torch.bench
 
 Prints ONE JSON line: ``{"metric", "value", "unit", "vs_baseline"}``, the
 metric named as the JAX bench names it (``train_clouds_per_sec_per_chip_8k_pts``,
@@ -21,6 +21,13 @@ reference: 5.0 clouds/s (batch 3 at 7000 points on an A100).  The JAX
 bench's ``mfu`` and ``hbm_util`` came from XLA's cost model and TPU peaks
 and are not reported.  It runs on the card; ``--device cpu`` (or
 ``main(device="cpu")``) runs it on the CPU.
+
+``GCA_BENCH_MESH=N`` > 1 benches the data-parallel step: one process per
+device in a group of ``N`` (``parallel/dist.py``; rank r on ``cuda:r``
+unless ``--device`` says otherwise), each on its ``B/N`` items of the one
+global batch.  Rank 0 prints the line, with the JAX bench's per-device
+value ``B * iters / seconds / N``, ``devices`` and
+``total_clouds_per_sec``.
 """
 
 from __future__ import annotations
@@ -31,32 +38,26 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from gcanet_tpu_torch.config import bench_config, scene_grouping_defaults
 from gcanet_tpu_torch.data.synthetic import synth_batch, synth_scene_batch
+from gcanet_tpu_torch.parallel.dist import (broadcast_module, data_parallel_world,
+                                            get_dist_info, local_shard, maybe_init_from_env,
+                                            pick_device)
 from gcanet_tpu_torch.train import scene_step
 from gcanet_tpu_torch.train import step as step_lib
 
 REFERENCE_CLOUDS_PER_SEC = 5.0
 
 
-def _device(device: str | torch.device | None) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("the bench runs on cuda by default and no CUDA device is "
-                           "available; pass --device cpu to run it on the CPU")
-    return dev
-
-
 def build(family: str, device: torch.device):
     """``(cfg, model, optimizer, batch, step, metric)`` of the bench workload:
-    the model and Adam from the seed, one synthetic batch (seed 0) on
-    ``device``, and ``step(model, optimizer, batch, generator)``."""
+    the model and Adam from the seed, one synthetic batch (seed 0; under
+    ``GCA_BENCH_MESH`` this rank's chunk of it) on ``device``, and
+    ``step(model, optimizer, batch, generator)``."""
     cfg = bench_config()
-    if str(cfg.mesh_shape) not in ("1", ""):
-        raise NotImplementedError(f"GCA_BENCH_MESH={cfg.mesh_shape}: the data-parallel "
-                                  "bench is not ported yet (ROADMAP.md Queue 1, data "
-                                  "parallelism)")
+    world = data_parallel_world(cfg)
     env = os.environ
     if family == "scene":
         from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
@@ -80,17 +81,33 @@ def build(family: str, device: torch.device):
     else:
         raise ValueError(f"GCA_BENCH_FAMILY={family!r}; 'abc' or 'scene'")
     model.to(device)
+    raw = {k: v for k, v in raw.items() if k != "index"}
+    if world > 1:
+        broadcast_module(model)
+        raw = local_shard(raw, get_dist_info()[0], world)
     optimizer = step_lib.make_optimizer(cfg, model.parameters())
-    batch = step_lib.batch_to_device({k: v for k, v in raw.items() if k != "index"}, device)
+    batch = step_lib.batch_to_device(raw, device)
     return cfg, model, optimizer, batch, step, metric
 
 
 def main(argv: list[str] | None = None, device: str | torch.device | None = None) -> dict:
-    """Run the bench and print its JSON line; returns the line's dict."""
+    """Run the bench and print its JSON line (rank 0 under a mesh); returns
+    the line's dict.  Joins the launcher's group when there is one and this
+    process is in none."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    dev = _device(device if device is not None else args.device)
+    joined = maybe_init_from_env()
+    try:
+        return _run(device if device is not None else args.device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _run(device: str | torch.device | None) -> dict:
+    world = data_parallel_world(bench_config())
+    dev = pick_device(device, world, "the bench")
     family = os.environ.get("GCA_BENCH_FAMILY", "abc")
     cfg, model, optimizer, batch, step, metric = build(family, dev)
     generator = torch.Generator(device=dev).manual_seed(1)
@@ -114,10 +131,14 @@ def main(argv: list[str] | None = None, device: str | torch.device | None = None
         seconds = time.perf_counter() - t0
     if not torch.isfinite(metrics["total_loss"]):
         raise RuntimeError(f"the bench's last total_loss is {float(metrics['total_loss'])}")
-    clouds_per_sec = cfg.batch_size * n_iters / seconds
+    clouds_per_sec = cfg.batch_size * n_iters / seconds / world
     row = {"metric": metric, "value": round(clouds_per_sec, 3), "unit": "clouds/s",
            "vs_baseline": round(clouds_per_sec / REFERENCE_CLOUDS_PER_SEC, 3)}
-    print(json.dumps(row))
+    if world > 1:
+        row["devices"] = world
+        row["total_clouds_per_sec"] = round(clouds_per_sec * world, 3)
+    if get_dist_info()[0] == 0:
+        print(json.dumps(row))
     return row
 
 

@@ -4,9 +4,10 @@ A copy of ``GroupingConfig``, ``InstanceHeadConfig``, ``Config`` and the CLI
 (``build_option``, ``config_from_namespace``) from the JAX package's
 ``config.py``: same field names, same defaults, same flags, so one argv gives
 the same config in both packages.  ``check_supported`` and
-``check_trainable`` refuse the values whose code paths are not ported yet
-(each with ``scene=True`` for the SoftGroup scene family);
-the CLI parses them and leaves the refusal to the entry points.
+``check_trainable`` refuse the values no code path takes, and a
+``mesh_shape`` without its process group (each with ``scene=True`` for the
+SoftGroup scene family); the CLI parses them and leaves the refusal to the
+entry points.
 ``bench_config`` reads the bench workload from the ``GCA_BENCH_*``
 environment knobs, as the JAX package's does.
 """
@@ -184,13 +185,6 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
-def _refuse(unported: dict[str, bool], what: str) -> None:
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"{what} not ported yet: {', '.join(bad)} "
-                                  f"(see ROADMAP.md)")
-
-
 def check_supported(cfg: Config, scene: bool = False) -> None:
     """Raise on config values no model code path takes: an
     ``offset_variant`` other than ``"kpam"`` or ``"dual"`` for
@@ -206,11 +200,15 @@ def check_supported(cfg: Config, scene: bool = False) -> None:
 
 
 def check_trainable(cfg: Config, scene: bool = False) -> None:
-    """Raise on config values the training path does not honour yet: data
-    parallelism (``mesh_shape`` > 1) for either family (``scene=True`` for
-    the SoftGroup scene family), and what ``check_supported`` refuses."""
+    """Raise on config values the training path does not honour: what
+    ``check_supported`` refuses (``scene=True`` for the SoftGroup scene
+    family), and a ``mesh_shape`` other than the world of this process's
+    group (``parallel/dist.py::data_parallel_world``: ``mesh_shape`` > 1
+    needs ``torchrun --nproc_per_node mesh_shape``)."""
+    from gcanet_tpu_torch.parallel.dist import data_parallel_world
+
     check_supported(cfg, scene=scene)
-    _refuse({"mesh_shape": str(cfg.mesh_shape) not in ("1", "")}, "training option")
+    data_parallel_world(cfg)
 
 
 def bench_config() -> Config:

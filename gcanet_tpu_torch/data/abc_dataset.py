@@ -25,16 +25,7 @@ import numpy as np
 from gcanet_tpu_torch.config import Config
 from gcanet_tpu_torch.data import native
 from gcanet_tpu_torch.data.augment import AUGMENT_ROUTINES
-
-
-def shard_bounds(batch_size: int, rank: int, world: int):
-    """This process's contiguous ``[start, stop)`` slice of the global
-    batch; raises when the batch does not split evenly."""
-    if batch_size % world:
-        raise ValueError(f"batch_size {batch_size} not divisible by "
-                         f"process_count {world}")
-    local = batch_size // world
-    return rank * local, (rank + 1) * local
+from gcanet_tpu_torch.parallel.dist import shard_bounds
 
 
 def load_h5_object(path: str) -> Dict[str, np.ndarray]:

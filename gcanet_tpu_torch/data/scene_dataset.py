@@ -27,6 +27,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from gcanet_tpu_torch.config import Config
+from gcanet_tpu_torch.parallel.dist import shard_bounds
 
 
 def elastic(x: np.ndarray, gran: float, mag: float,
@@ -272,8 +273,6 @@ class SceneDataset:
         if shuffle:
             rng.shuffle(order)
         if world > 1:
-            from gcanet_tpu_torch.data.abc_dataset import shard_bounds
-
             lo, hi = shard_bounds(batch_size, rank, world)
         else:
             lo, hi = 0, batch_size

@@ -138,10 +138,12 @@ class PrimitiveNet(nn.Module):
 
     def forward(self, xyz: torch.Tensor, normals: torch.Tensor,
                 r1: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> ModelOutput:
+                generator: torch.Generator | None = None, chunk=None) -> ModelOutput:
         """In training mode the voxel grids shift by ``r1 [2, 3]`` when
         given, else by a draw from ``generator`` (on the model's device);
-        both are unused in eval mode."""
+        both are unused in eval mode.  ``chunk``: this batch is one chunk of
+        a batch served over several devices (``parallel/chunks.py``), whose
+        proposal cap it shares."""
         cfg = self.cfg
         b, n, _ = xyz.shape
         num_cls = cfg.num_primitives
@@ -208,7 +210,7 @@ class PrimitiveNet(nn.Module):
             embedding.detach().float(), param_per_point.detach().float(),
             num_cls, cfg.grouping,
             max_proposals=cfg.instance_head.max_proposals,
-            using_set_aggr=(not self.training) and cfg.using_set_aggr)
+            using_set_aggr=(not self.training) and cfg.using_set_aggr, chunk=chunk)
 
         # per-proposal voxelisation and instance head (dgcnn-4.py:1300-1392);
         # the head's gradient reaches the embedding through the voxel means

@@ -165,13 +165,15 @@ class SoftGroupNet(nn.Module):
 
     def forward(self, xyz: torch.Tensor, feats: torch.Tensor, x4_split: bool = False,
                 r1: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> SoftGroupOutput:
+                generator: torch.Generator | None = None, chunk=None) -> SoftGroupOutput:
         """``x4_split`` (one scene, 4 | N) runs the backbone on the 4
         interleaved parts ``[p::4]`` as a batch of 4 and re-interleaves the
         point features (the S3DIS test protocol, softgroup.py:380-411).  In
         training mode the proposal grids shift by ``r1 [2, 3]`` when given,
         else by a draw from ``generator`` (on the model's device); both are
-        unused in eval mode."""
+        unused in eval mode.  ``chunk``: this batch is one chunk of a batch
+        served over several devices (``parallel/chunks.py``), whose proposal
+        cap and ``min_npoint`` it shares."""
         if self.training and not self.semantic_only and r1 is None and generator is None:
             raise ValueError("the training forward draws its grid shift from r1 or a "
                              "generator; it never uses torch's global RNG")
@@ -200,7 +202,8 @@ class SoftGroupNet(nn.Module):
         ih = cfg.instance_head
         if cfg.scene_soft_grouping:
             proposals = grouping_ops.build_soft_proposals(
-                shifted, logits, num_cls, cfg.grouping, max_proposals=ih.max_proposals)
+                shifted, logits, num_cls, cfg.grouping, max_proposals=ih.max_proposals,
+                chunk=chunk)
         else:
             # the argmax partition on the plain radius graph: the affinity
             # gates are the flagship's and would cut every edge here
@@ -211,7 +214,7 @@ class SoftGroupNet(nn.Module):
                 pfeat.reshape(b, n, -1).detach().float(),
                 torch.zeros((b, n, 22), device=xyz.device), num_cls, gcfg,
                 max_proposals=ih.max_proposals,
-                using_set_aggr=(not self.training) and cfg.using_set_aggr)
+                using_set_aggr=(not self.training) and cfg.using_set_aggr, chunk=chunk)
 
         vx = vox_ops.clusters_voxelization(
             xyz.reshape(b * n, 3), pfeat, proposals.point_pid,

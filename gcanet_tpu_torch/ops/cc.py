@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -23,6 +24,7 @@ from gcanet_tpu_torch.utils import kernels
 
 BIG_LABEL = 2**30
 SOURCE = "cc_sweep.cu"
+_count_lock = threading.Lock()     # a data-parallel predictor launches from several threads
 
 
 def masked_min_sweep_plain(nbr: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -74,7 +76,8 @@ def masked_min_sweep(nbr: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
                           torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"cc_masked_min_sweep launch failed: cudaError {err}")
-    masked_min_sweep.launches += 1
+    with _count_lock:
+        masked_min_sweep.launches += 1
     return out
 
 

@@ -15,6 +15,13 @@ graph restricted to that class's soft subset, one channel per grouped class.
 ``simple_clusters``, the plain radius-graph clustering within each class
 with the per-class size test.
 
+Both proposal functions take ``chunk`` (``parallel/chunks.py``) when the
+batch is one chunk of a larger one served over several devices: their
+ranks are then the whole batch's, the cap keeps the batch's
+``max_proposals`` smallest ranks over every chunk, and the scene family's
+``min_npoint`` counts the whole batch, so each chunk keeps what one device
+would keep of its items.
+
 Connected components come from ``ops/cc.py`` (the hand-written CUDA sweep on
 a card).
 """
@@ -129,6 +136,18 @@ def check_rank_bound(bound: int, what: str) -> None:
                          f"the shape is too large")
 
 
+def _within_cap(top_rank: torch.Tensor, p: int, chunk) -> torch.Tensor:
+    """Which of the ``p`` smallest ranks of a batch (or of a chunk) are
+    proposals: below the sentinel, and with ``chunk`` also among the ``p``
+    smallest over every chunk of the batch (the ranks are the batch's, so
+    they are unique across chunks)."""
+    valid = top_rank < _BIG_I
+    if chunk is not None:
+        everyone = torch.sort(torch.cat(chunk.all_gather(top_rank))).values
+        valid &= top_rank <= everyone[p - 1].to(top_rank.device)
+    return valid
+
+
 def _rank_in_group(order_key: torch.Tensor, group: torch.Tensor) -> torch.Tensor:
     """Each element's rank within its ``group`` when sorted by the unique
     ``order_key`` (a group's keys sort together, ahead of the next group's)."""
@@ -148,13 +167,15 @@ def build_proposals(shifted: torch.Tensor,      # [B, N, 3]
                     num_classes: int,
                     cfg: GroupingConfig,
                     max_proposals: int,
-                    using_set_aggr: bool = False) -> Proposals:
-    """Full grouping pass over a batch (batch items one after another)."""
+                    using_set_aggr: bool = False, chunk=None) -> Proposals:
+    """Full grouping pass over a batch (batch items one after another);
+    ``chunk``: see the module docstring."""
     b, n, _ = shifted.shape
     dev = shifted.device
     n_total = b * n
-    check_rank_bound(proposal_rank_bound(b, n, num_classes),
-                     f"proposal rank at B={b}, N={n}, C={num_classes}")
+    first, b_all = (chunk.offset, chunk.total) if chunk is not None else (0, b)
+    check_rank_bound(proposal_rank_bound(b_all, n, num_classes),
+                     f"proposal rank at B={b_all}, N={n}, C={num_classes}")
 
     if num_classes <= len(cfg.class_numpoint_mean):
         mean_tbl = torch.tensor(cfg.class_numpoint_mean[:num_classes],
@@ -198,15 +219,15 @@ def build_proposals(shifted: torch.Tensor,      # [B, N, 3]
     g_batch = batch_ids.reshape(-1)
     g_idx = torch.arange(n_total, dtype=torch.int64, device=dev)
 
-    root_rank = ((g_batch.long() * num_classes + g_cls) * 2
-                 + g_primary.long()) * n_total + g_idx
+    root_rank = (((g_batch.long() + first) * num_classes + g_cls) * 2
+                 + g_primary.long()) * (b_all * n) + g_idx + first * n
     root_rank = torch.where(g_is_root & g_qual, root_rank, _BIG_I)
     p = max_proposals
     pad = max(0, p - n_total)
     rank_full = torch.cat([root_rank, torch.full((pad,), _BIG_I, dtype=torch.int64,
                                                  device=dev)])
     order = torch.argsort(rank_full, stable=True)
-    top_valid = rank_full[order[:p]] < _BIG_I
+    top_valid = _within_cap(rank_full[order[:p]], p, chunk)
     top_roots = torch.clamp(order[:p], max=n_total - 1)
 
     # root -> pid scatter (overflow slot at n_total)
@@ -299,7 +320,7 @@ def build_soft_proposals(shifted: torch.Tensor,          # [B, N, 3]
                          semantic_logits: torch.Tensor,  # [B, N, C]
                          num_classes: int,
                          cfg: GroupingConfig,
-                         max_proposals: int) -> Proposals:
+                         max_proposals: int, chunk=None) -> Proposals:
     """Soft per-class grouping (SoftGroup, softgroup/model/softgroup.py:412-481).
 
     For each class not in ``cfg.ignore_classes`` the clustered subset is
@@ -311,6 +332,7 @@ def build_soft_proposals(shifted: torch.Tensor,          # [B, N, 3]
     ``npoint_thr`` where the mean is -1).  Proposals are ordered class-major,
     then by the component's global minimum point index, and truncated to
     ``max_proposals``.  ``point_pid`` has one channel per grouped class.
+    ``chunk``: see the module docstring.
     """
     b, n, c_all = shifted.shape[0], shifted.shape[1], semantic_logits.shape[-1]
     dev = shifted.device
@@ -321,11 +343,16 @@ def build_soft_proposals(shifted: torch.Tensor,          # [B, N, 3]
     gc = len(grouped)
     if gc < 1:
         raise ValueError("every class is ignored: nothing to group")
-    check_rank_bound(soft_rank_bound(b, n, gc), f"soft-proposal rank at B={b}, N={n}, C={gc}")
+    first, b_all = (chunk.offset, chunk.total) if chunk is not None else (0, b)
+    check_rank_bound(soft_rank_bound(b_all, n, gc),
+                     f"soft-proposal rank at B={b_all}, N={n}, C={gc}")
 
     grouped_t = torch.tensor(grouped, dtype=torch.long, device=dev)
     member = torch.softmax(semantic_logits, dim=-1)[..., grouped_t] > cfg.score_thr
-    class_ok = member.sum(dim=(0, 1)) >= cfg.min_npoint                 # [gc]
+    count = member.sum(dim=(0, 1))                                      # [gc]
+    if chunk is not None:
+        count = torch.stack(chunk.all_gather(count)).sum(dim=0).to(dev)
+    class_ok = count >= cfg.min_npoint
 
     mean_all = torch.full((num_classes,), -1.0, device=dev)
     k = min(num_classes, len(cfg.class_numpoint_mean))
@@ -371,7 +398,11 @@ def build_soft_proposals(shifted: torch.Tensor,          # [B, N, 3]
     pad = max(0, p - gc * n_total)
     rank_full = torch.cat([rank, torch.full((pad,), _BIG_I, dtype=torch.long, device=dev)])
     order = torch.argsort(rank_full, stable=True)
-    top_valid = rank_full[order[:p]] < _BIG_I
+    top_rank = rank_full[order[:p]]
+    if chunk is not None:               # the batch's rank: (class, root over the batch)
+        top_rank = torch.where(top_rank < _BIG_I, top_rank // n_total * (b_all * n)
+                               + first * n + top_rank % n_total, _BIG_I)
+    top_valid = _within_cap(top_rank, p, chunk)
     top_entry = torch.clamp(order[:p], max=gc * n_total - 1)
 
     # (channel, groot) -> pid table with an overflow slot for unused pids

@@ -8,13 +8,20 @@ and copy the results to the host in one transfer per batch
 host; the meanshift mode's ``predict`` adds the embedding's mean-shift
 labels, computed on the device, to that copy).  It runs on ``cuda`` unless
 the caller passes ``device="cpu"``; it never moves to the CPU on its own.
+
+With ``cfg.mesh_shape = N`` > 1 a predictor serves data-parallel over a
+list of ``N`` devices (``cuda:0`` .. ``cuda:N-1`` by default): a replica of
+the model on each, every batch split into ``N`` contiguous chunks run by
+one thread each (``parallel/chunks.py``), with the one-device result.
+``predict`` then raises, as the JAX package's does under a mesh.
 """
 
 from __future__ import annotations
 
+import functools
 from collections import deque
 from pathlib import Path
-from typing import Dict, Iterable, Iterator, List, Mapping, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,20 +30,87 @@ from gcanet_tpu_torch.config import Config
 from gcanet_tpu_torch.geometry.affinity import mean_shift
 from gcanet_tpu_torch.models.registry import build_model, check_instance_model
 from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
+from gcanet_tpu_torch.parallel.chunks import BatchChunks, run_chunks
+from gcanet_tpu_torch.parallel.dist import mesh_size
 from gcanet_tpu_torch.train import instances as inst_utils
 from gcanet_tpu_torch.utils.from_jax import load_reference_checkpoint
 from gcanet_tpu_torch.utils.transfer import fetch
 
 
-def _device(cfg: Config, device: str | torch.device | None, what: str) -> torch.device:
-    """The serving device; refuses data-parallel configs."""
-    if str(cfg.mesh_shape) not in ("1", ""):
-        raise NotImplementedError("data-parallel serving is not ported yet (see ROADMAP.md)")
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{what} runs on cuda by default and no CUDA device is "
-                           f"available; pass device='cpu' to run on the CPU")
-    return dev
+Device = str | torch.device
+
+
+def _devices(cfg: Config, device: Device | Sequence[Device] | None,
+             what: str) -> List[torch.device]:
+    """The serving devices: ``mesh_shape`` of them (one device, or a list),
+    by default ``cuda`` or ``cuda:0`` .. ``cuda:N-1``."""
+    n = mesh_size(cfg)
+    if device is None:
+        device = "cuda" if n == 1 else [f"cuda:{i}" for i in range(n)]
+    devs = [torch.device(d) for d in (device if isinstance(device, (list, tuple))
+                                      else [device])]
+    if len(devs) != n:
+        raise ValueError(f"mesh_shape={cfg.mesh_shape} serves data-parallel on {n} "
+                         f"device(s), got {len(devs)}: pass device=[...] with {n} devices")
+    if any(d.type == "cuda" for d in devs):
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if count == 0:
+            raise RuntimeError(f"{what} runs on cuda by default and no CUDA device is "
+                               f"available; pass device='cpu' to run on the CPU")
+        missing = [str(d) for d in devs if d.type == "cuda" and (d.index or 0) >= count]
+        if missing:
+            raise RuntimeError(f"{what}: {missing} not visible ({count} CUDA devices)")
+    return devs
+
+
+def _replicas(model: torch.nn.Module, devices: List[torch.device],
+              build: Callable[[], torch.nn.Module]) -> List[torch.nn.Module]:
+    """``model`` on the first device and a copy (``build()`` loaded with its
+    state) on each other one; devices that are equal share one replica."""
+    by_device = {devices[0]: model.to(devices[0]).eval()}
+    for dev in devices[1:]:
+        if dev not in by_device:
+            copy = build()
+            copy.load_state_dict(model.state_dict())
+            by_device[dev] = copy.to(dev).eval()
+    return [by_device[d] for d in devices]
+
+
+class _DataParallel:
+    """What both predictors share: the replicas, the batch split into
+    chunks, one thread each, and their results finalised chunk by chunk."""
+
+    def _split(self, xyz: np.ndarray, aux: np.ndarray) -> List[Tuple[List, int]]:
+        """Dispatch ``[B, N, 3]`` arrays: ``[(device tensors, items)]`` per
+        chunk."""
+        b = np.shape(xyz)[0]
+        k = len(self.devices)
+        if k == 1:
+            return [(self._forward_fast(xyz, aux), b)]
+        if b % k:
+            raise ValueError(f"a batch of {b} does not split over mesh_shape={k} devices")
+        step = b // k
+        chunks = BatchChunks([step] * k)
+        fns = [functools.partial(self._forward_fast, xyz[i * step:(i + 1) * step],
+                                 aux[i * step:(i + 1) * step], i, chunks.chunk(i))
+               for i in range(k)]
+        return [(dev, step) for dev in run_chunks(fns, chunks)]
+
+    def _finalize(self, parts: List[Tuple[List, int]], n: int) -> List[Dict]:
+        return [r for dev, b in parts for r in self._finalize_batch(dev, b, n)]
+
+    def _single(self, what: str) -> None:
+        if len(self.devices) > 1:
+            raise ValueError(f"{what} runs batch-1 and cannot shard over a mesh "
+                             f"(cfg.mesh_shape > 1); use predict_batch/predict_stream with a "
+                             f"batch divisible by the mesh size")
+
+    def predict_stream(self, batches: Iterable[Tuple[np.ndarray, np.ndarray]],
+                       depth: int = 2) -> Iterator[Dict]:
+        """Iterate ``(xyz [B, N, 3], aux)`` batches and yield the per-item
+        dicts of ``predict_batch`` in order; up to ``depth`` batches are run
+        ahead of the oldest one's copy to the host."""
+        return _stream(self._split, self._finalize, batches, depth)
 
 
 def _stream(forward, finalize, batches: Iterable[Tuple[np.ndarray, np.ndarray]],
@@ -45,14 +119,14 @@ def _stream(forward, finalize, batches: Iterable[Tuple[np.ndarray, np.ndarray]],
     the host and host work, yielding per-item dicts in order."""
     pending = deque()
     for a, b in batches:
-        pending.append((forward(a, b), *np.shape(a)[:2]))
+        pending.append((forward(a, b), np.shape(a)[1]))
         if len(pending) > depth:
             yield from finalize(*pending.popleft())
     while pending:
         yield from finalize(*pending.popleft())
 
 
-class Predictor:
+class Predictor(_DataParallel):
     """Flagship-model serving.
 
     ``cluster_mode``: ``"grouping"`` (the gated grouping and the instance
@@ -63,31 +137,38 @@ class Predictor:
     ``checkpoint``: a reference-format ``.tar`` path, or a state_dict in the
     reference's or the port's layout (``utils/from_jax.py``); ``None`` keeps
     random weights seeded with ``cfg.seed``.  ``device``: default ``cuda``;
-    raises when no card is present unless ``device="cpu"`` is asked for.
+    raises when no card is present unless ``device="cpu"`` is asked for;
+    with ``cfg.mesh_shape = N`` > 1 a list of ``N`` devices (module
+    docstring).  ``model`` is the first device's replica.
     """
 
     def __init__(self, cfg: Config,
                  checkpoint: str | Path | Mapping[str, torch.Tensor] | None = None,
-                 device: str | torch.device | None = None,
+                 device: Device | Sequence[Device] | None = None,
                  cluster_mode: str = "grouping"):
         check_instance_model(cfg, "Predictor")
         if cluster_mode not in ("grouping", "meanshift"):
             raise ValueError(f"cluster_mode={cluster_mode!r}: expected 'grouping' or "
                              "'meanshift'")
         self.cluster_mode = cluster_mode
-        self.device = _device(cfg, device, "Predictor")
+        self.devices = _devices(cfg, device, "Predictor")
+        self.device = self.devices[0]
         self.cfg = cfg
         self.model = build_model(cfg)
         self.load_report = (load_reference_checkpoint(self.model, checkpoint)
                             if checkpoint is not None else None)
-        self.model.to(self.device).eval()
+        self.replicas = _replicas(self.model, self.devices, lambda: build_model(cfg))
 
     @torch.inference_mode()
-    def _forward_fast(self, xyz: np.ndarray, normals: np.ndarray) -> List[torch.Tensor]:
-        """Forward + on-device instance extraction for a ``[B, N, 3]`` batch."""
-        xyz_t = torch.as_tensor(np.ascontiguousarray(xyz, np.float32), device=self.device)
-        nrm_t = torch.as_tensor(np.ascontiguousarray(normals, np.float32), device=self.device)
-        out = self.model(xyz_t, nrm_t)
+    def _forward_fast(self, xyz: np.ndarray, normals: np.ndarray, replica: int = 0,
+                      chunk=None) -> List[torch.Tensor]:
+        """Forward + on-device instance extraction for a ``[B, N, 3]`` batch
+        on replica ``replica``; ``chunk`` when the batch is one chunk of a
+        larger one."""
+        dev = self.devices[replica]
+        xyz_t = torch.as_tensor(np.ascontiguousarray(xyz, np.float32), device=dev)
+        nrm_t = torch.as_tensor(np.ascontiguousarray(normals, np.float32), device=dev)
+        out = self.replicas[replica](xyz_t, nrm_t, chunk=chunk)
         merged, keep, conf, npoint, covered = inst_utils.merged_labels_device(
             out.proposals.point_pid, out.instance.cls_scores,
             out.instance.iou_scores, out.instance.mask_scores,
@@ -125,7 +206,8 @@ class Predictor:
         embedding is returned too).  The meanshift mode takes that path, with
         the mean-shift labels of the embedding as ``instance_labels``.
         ``panoptic`` adds the fused ``class | id << 16`` labels
-        (``panoptic_fusion``)."""
+        (``panoptic_fusion``).  Raises under a mesh (``mesh_shape`` > 1)."""
+        self._single("predict()")
         n = np.shape(xyz)[0]
         if return_masks or self.cluster_mode == "meanshift":
             fetched = self._forward_masks(xyz, normals)
@@ -161,11 +243,12 @@ class Predictor:
 
     def predict_batch(self, xyz: np.ndarray, normals: np.ndarray) -> List[Dict]:
         """``xyz/normals [B, N, 3]`` -> one prediction dict per cloud, with
-        per-cloud instance labels re-compacted to 0..K-1."""
+        per-cloud instance labels re-compacted to 0..K-1.  Under a mesh ``B``
+        must divide by ``mesh_shape``."""
         if np.ndim(xyz) != 3:
             raise ValueError(f"predict_batch expects xyz [B, N, 3]; got shape "
                              f"{np.shape(xyz)} — use predict() for one [N, 3] cloud")
-        return self._finalize_batch(self._forward_fast(xyz, normals), *np.shape(xyz)[:2])
+        return self._finalize(self._split(xyz, normals), np.shape(xyz)[1])
 
     def _finalize_batch(self, dev: List[torch.Tensor], b: int, n: int) -> List[Dict]:
         """One copy of a dispatched batch to the host, then per-cloud dicts."""
@@ -192,19 +275,12 @@ class Predictor:
             })
         return results
 
-    def predict_stream(self, batches: Iterable[Tuple[np.ndarray, np.ndarray]],
-                       depth: int = 2) -> Iterator[Dict]:
-        """Iterate ``(xyz [B, N, 3], normals)`` batches and yield the
-        per-cloud dicts of ``predict_batch`` in order; up to ``depth``
-        batches are run ahead of the oldest one's copy to the host."""
-        return _stream(self._forward_fast, self._finalize_batch, batches, depth)
-
     def predict_type_sharded(self, xyz: np.ndarray, normals: np.ndarray):
         raise NotImplementedError("predict_type_sharded is not ported yet "
                                   "(sequence parallelism, see ROADMAP.md)")
 
 
-class ScenePredictor:
+class ScenePredictor(_DataParallel):
     """SoftGroup scene-family serving (``gcanet_tpu/serve.py::ScenePredictor``):
     per-scene semantic labels, offsets and scored, possibly overlapping
     instance masks.
@@ -214,28 +290,38 @@ class ScenePredictor:
     ``None`` keeps random weights seeded with ``cfg.seed``.  ``cls_offset``
     maps instance-class columns to the dataset's semantic ids (scannetv2:
     2, s3dis: 0, stpls3d: 1, kitti: 11).  ``device``: default ``cuda``;
-    raises when no card is present unless ``device="cpu"`` is asked for.
+    raises when no card is present unless ``device="cpu"`` is asked for;
+    with ``cfg.mesh_shape = N`` > 1 a list of ``N`` devices (module
+    docstring).  ``model`` is the first device's replica.
     """
 
     def __init__(self, cfg: Config,
                  checkpoint: str | Path | Mapping[str, torch.Tensor] | None = None,
-                 device: str | torch.device | None = None,
+                 device: Device | Sequence[Device] | None = None,
                  cls_offset: int = 2, scene_grid: int = 64):
-        self.device = _device(cfg, device, "ScenePredictor")
+        self.devices = _devices(cfg, device, "ScenePredictor")
+        self.device = self.devices[0]
         self.cfg = cfg
         self.cls_offset = cls_offset
-        self.model = SoftGroupNet(cfg, scene_grid=scene_grid, compute_bf16=bool(cfg.scene_bf16))
+
+        def build():
+            return SoftGroupNet(cfg, scene_grid=scene_grid, compute_bf16=bool(cfg.scene_bf16))
+
+        self.model = build()
         self.load_report = (load_reference_checkpoint(self.model, checkpoint, family="scene")
                             if checkpoint is not None else None)
-        self.model.to(self.device).eval()
+        self.replicas = _replicas(self.model, self.devices, build)
 
     @torch.inference_mode()
-    def _forward_fast(self, xyz: np.ndarray, feats: np.ndarray) -> List[torch.Tensor]:
+    def _forward_fast(self, xyz: np.ndarray, feats: np.ndarray, replica: int = 0,
+                      chunk=None) -> List[torch.Tensor]:
         """Forward, the unmerged instance masks (bit-packed) and the
-        semantic argmax on the device for a ``[B, N, 3]`` batch."""
-        xyz_t, feats_t = (torch.as_tensor(np.ascontiguousarray(a, np.float32), device=self.device)
+        semantic argmax on replica ``replica`` for a ``[B, N, 3]`` batch;
+        ``chunk`` when the batch is one chunk of a larger one."""
+        dev = self.devices[replica]
+        xyz_t, feats_t = (torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
                           for a in (xyz, feats))
-        out = self.model(xyz_t, feats_t)
+        out = self.replicas[replica](xyz_t, feats_t, chunk=chunk)
         keep, conf, npoint, masks = inst_utils.instance_masks_device(
             out.proposals.point_pid, out.instance.cls_scores, out.instance.iou_scores,
             out.instance.mask_scores, out.proposals.valid, self.cfg.num_primitives)
@@ -271,20 +357,15 @@ class ScenePredictor:
 
     def predict(self, xyz: np.ndarray, feats: np.ndarray) -> Dict:
         """One scene: ``xyz [N, 3]`` in the unit cube, ``feats [N, 3]``
-        colours."""
+        colours.  Raises under a mesh (``mesh_shape`` > 1)."""
+        self._single("predict()")
         xyz = np.asarray(xyz)
         return self._finalize_batch(self._forward_fast(xyz[None], np.asarray(feats)[None]),
                                     1, xyz.shape[0])[0]
 
     def predict_batch(self, xyz: np.ndarray, feats: np.ndarray) -> List[Dict]:
-        """``xyz [B, N, 3]``, ``feats [B, N, 3]`` -> one dict per scene."""
+        """``xyz [B, N, 3]``, ``feats [B, N, 3]`` -> one dict per scene.
+        Under a mesh ``B`` must divide by ``mesh_shape``."""
         if np.ndim(xyz) != 3:
             raise ValueError(f"predict_batch expects xyz [B, N, 3]; got {np.shape(xyz)}")
-        return self._finalize_batch(self._forward_fast(xyz, feats), *np.shape(xyz)[:2])
-
-    def predict_stream(self, batches: Iterable[Tuple[np.ndarray, np.ndarray]],
-                       depth: int = 2) -> Iterator[Dict]:
-        """``predict_batch`` over ``(xyz, feats)`` batches, yielding the
-        per-scene dicts in order, up to ``depth`` batches run ahead of the
-        oldest one's copy to the host."""
-        return _stream(self._forward_fast, self._finalize_batch, batches, depth)
+        return self._finalize(self._split(xyz, feats), np.shape(xyz)[1])

@@ -24,7 +24,11 @@ A JSON result holds ``types`` (per-point argmax), ``instance_labels`` and
 the instances (``label_id``, ``conf``, ``npoint``, RLE ``pred_mask``).  The
 batcher pads a short micro-batch to ``batch_size`` by repeating its last
 cloud, and one lock orders every call into the predictor.  The predictor
-runs on ``cuda`` unless ``--device cpu`` is given.
+runs on ``cuda`` unless ``--device cpu`` is given; a comma-separated list
+(``--device cuda:0,cuda:1``) serves data-parallel over those devices
+(``mesh_shape`` their count), each micro-batch split among them, so
+``--batch_size`` must divide by their count, or every batch fails as the
+JAX server's does.
 """
 
 from __future__ import annotations
@@ -309,15 +313,19 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="serving batch = dynamic-batch ceiling")
     ap.add_argument("--max_wait_ms", type=float, default=15.0,
                     help="micro-batch collection window after the first request")
-    ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default), cpu, or a comma-separated list of devices "
+                         "to serve data-parallel over")
     args = ap.parse_args(argv)
 
-    cfg = Config(num_points=args.num_points, batch_size=args.batch_size)
+    device = args.device.split(",") if args.device and "," in args.device else args.device
+    cfg = Config(num_points=args.num_points, batch_size=args.batch_size,
+                 mesh_shape=str(len(device)) if isinstance(device, list) else "1")
     srv = PredictionServer(cfg, args.checkpoint_dir, family=args.family,
-                           max_wait_ms=args.max_wait_ms, device=args.device)
+                           max_wait_ms=args.max_wait_ms, device=device)
     print(f"serving {args.family} family on {args.host}:{args.port} "
-          f"(N={args.num_points}, batch={args.batch_size}, device "
-          f"{srv.predictor.device})", flush=True)
+          f"(N={args.num_points}, batch={args.batch_size}, devices "
+          f"{[str(d) for d in srv.predictor.devices]})", flush=True)
     try:
         srv.serve(args.host, args.port)
     finally:

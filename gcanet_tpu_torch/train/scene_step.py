@@ -10,7 +10,9 @@ Loss orchestration mirrors the reference's ``SoftGroup.forward_train``
     flagship), left out in the ``semantic_only`` stage.
 
 ``scene_train_step`` is forward in training mode, backward, one optimizer
-step; its metrics stay on the device.
+step; its metrics stay on the device.  Under data parallelism
+(``cfg.mesh_shape`` > 1) it is the flagship's (``train/step.py``), with the
+fixed modules frozen before the group's mean, as in JAX.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from gcanet_tpu_torch.config import Config, check_trainable
 from gcanet_tpu_torch.losses import losses as L
 from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet, SoftGroupOutput
+from gcanet_tpu_torch.train.step import data_parallel_mean
 
 
 def compute_scene_losses(cfg: Config, out: SoftGroupOutput, batch: Mapping[str, torch.Tensor]
@@ -74,8 +77,9 @@ def scene_train_step(model: SoftGroupNet, optimizer: torch.optim.Optimizer,
     them: their parameters get no gradient (``grad = None``, which every
     torch optimizer skips, weight decay included) and their running
     statistics are put back after the forward, which still normalises them
-    with batch statistics (no ``.eval()``).  Returns the loss dict and
-    ``total_loss`` as detached device tensors."""
+    with batch statistics (no ``.eval()``); the freeze comes before the
+    group's mean under data parallelism (JAX ``scene_step.py:123-129``).
+    Returns the loss dict and ``total_loss`` as detached device tensors."""
     cfg = model.cfg
     check_trainable(cfg, scene=True)
     model.train()
@@ -91,5 +95,10 @@ def scene_train_step(model: SoftGroupNet, optimizer: torch.optim.Optimizer,
                 p.grad = None
         for buf, old in saved:
             buf.copy_(old)
+    frozen_params = {id(p) for m in frozen for p in m.parameters()}
+    metrics = {k: v.detach() for k, v in dict(ld, total_loss=total).items()}
+    metrics = data_parallel_mean(cfg, [p for p in model.parameters()
+                                       if id(p) not in frozen_params],
+                                 model.buffers(), metrics)
     optimizer.step()
-    return {k: v.detach() for k, v in dict(ld, total_loss=total).items()}
+    return metrics

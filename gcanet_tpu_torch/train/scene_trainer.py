@@ -123,8 +123,10 @@ class SceneTrainer(Trainer):
         Writes ``scalars_test.jsonl``, the log line and
         ``output_results.csv``.  A scene whose evaluation raises is logged,
         counted in ``eval_errors`` and skipped, except on a CUDA error.
-        Returns ``(miou, AP50)``, the two metrics ``train()`` keeps its best
-        checkpoints by."""
+        Under data parallelism each rank evaluates every ``world``-th scene
+        and the sums and scenes are merged before AP and PQ, which every
+        rank computes; rank 0 writes.  Returns ``(miou, AP50)``, the two
+        metrics ``train()`` keeps its best checkpoints by."""
         cfg = self.cfg
         scenes: List[Dict] = []
         sem_stats: Dict[str, float] = {}
@@ -158,6 +160,7 @@ class SceneTrainer(Trainer):
             self._results_rows.append({"ID": batch.get("index", ["?"])[0],
                                        "miou": round(pw["miou"], 3), "acc": round(pw["acc"], 3)})
             cnt += 1
+        sem_stats, cnt, scenes = self._merge_eval_results(sem_stats, cnt, scenes)
 
         class_ids = list(range(self.cls_offset, cfg.num_primitives - 1 + self.cls_offset))
         min_npoint = cfg.eval_min_npoint or (1 if self.test_data is None else None)
@@ -166,7 +169,5 @@ class SceneTrainer(Trainer):
         avg = {k: v / max(cnt, 1) for k, v in sem_stats.items()}
         avg["pq"] = instance_eval.panoptic_quality(scenes, class_ids)["pq"] if scenes else 0.0
         avg.update({k: float(v) for k, v in ap.items()})
-        self._write_results_csv(epoch, avg)
-        self.test_viz.log_scalars(avg, epoch)
-        self.logger.info("eval " + " ".join(f"{k}: {v:.4f}" for k, v in sorted(avg.items())))
+        self._log_eval(epoch, avg)
         return avg.get("miou", 0.0), avg.get("all_ap_50%", 0.0)

@@ -1,4 +1,4 @@
-"""The training step (port of ``gcanet_tpu/train/step.py``, one device).
+"""The training step (port of ``gcanet_tpu/train/step.py``).
 
 Loss orchestration mirrors ``MyTrainer.process_batch`` (train_new.py:22-137):
 the 'f'/'r'/'p'/'n' characters of ``loss_class`` select the embedding,
@@ -9,6 +9,17 @@ backward, one optimizer step; its metrics stay on the device.  With
 inputs, as the JAX step's does.  ``eval_step``
 is the eval forward, the losses and the merged instance labels, all on the
 device.
+
+Data parallelism (``cfg.mesh_shape = N`` > 1, one process per device in a
+group of ``N``: ``parallel/dist.py``) is the JAX step's ``shard_map``: each
+rank runs the whole model on its chunk of the global batch, with its own
+proposal cap, and averages the gradients, ``total``, the loss dict and the
+new batch statistics over the group (``data_parallel_mean``: the four
+``pmean`` calls of JAX) before the optimizer step, so every rank's Adam
+takes the same step.  A rank's batch is its own chunk with instance ids that
+index its own instance table, as on one device (a rank collates it itself,
+or ``parallel.dist.local_shard`` cuts it from a global batch); the JAX
+step's rebase of global ids is not needed.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ import torch
 from gcanet_tpu_torch.config import Config, check_trainable
 from gcanet_tpu_torch.losses import losses as L
 from gcanet_tpu_torch.models.primitive_net import ModelOutput, PrimitiveNet
+from gcanet_tpu_torch.parallel.dist import all_reduce_mean, data_parallel_world
 from gcanet_tpu_torch.train import instances as inst_utils
 from gcanet_tpu_torch.utils.precision import _map_floats
 
@@ -90,6 +102,44 @@ def lr_for_epoch(cfg: Config, epoch: int) -> float:
     return lr
 
 
+def rebase_local_batch(batch: Dict[str, np.ndarray], rank: int, world: int,
+                       max_instances: int) -> Dict[str, np.ndarray]:
+    """A rank's own collated chunk with the global batch's instance ids, the
+    JAX trainer's convention: its ``I_gt_global`` (``[0, local_b *
+    max_instances)``) shifted by the chunk's offset in the global instance
+    table; -1 stays.  Either family (ABC batches lead with ``gt_pc``, scenes
+    with ``xyz``).  The port's steps take local ids and need no rebase; this
+    is the inverse of ``local_shard``'s, for comparing a rank's chunk with a
+    global batch."""
+    if world <= 1 or rank == 0:
+        return batch
+    local_b = batch["gt_pc" if "gt_pc" in batch else "xyz"].shape[0]
+    base = rank * local_b * max_instances
+    ig = np.asarray(batch["I_gt_global"])
+    return dict(batch, I_gt_global=np.where(ig >= 0, ig + base, -1))
+
+
+def data_parallel_mean(cfg: Config, params: Iterable[torch.nn.Parameter],
+                       buffers: Iterable[torch.Tensor],
+                       metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Under data parallelism, JAX's ``pmean`` of the gradients of
+    ``params`` (a missing one is a zero, as in JAX), the floating
+    ``buffers`` (the new batch statistics) and the ``metrics``, in one
+    ``all_reduce``; returns the metrics (as float32).  One device: the
+    metrics as they are."""
+    if data_parallel_world(cfg) == 1:
+        return metrics
+    grads = []
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        grads.append(p.grad)
+    metrics = {k: v.float() for k, v in metrics.items()}
+    all_reduce_mean(grads + [b for b in buffers if b.is_floating_point()]
+                    + list(metrics.values()))
+    return metrics
+
+
 def batch_to_device(batch: Mapping[str, np.ndarray], device: torch.device | str
                     ) -> Dict[str, torch.Tensor]:
     """A collated numpy batch as tensors on ``device``; to a card through
@@ -129,20 +179,27 @@ def train_forward(model: PrimitiveNet, batch: Mapping[str, torch.Tensor],
 
 def train_step(model: PrimitiveNet, optimizer: torch.optim.Optimizer,
                batch: Mapping[str, torch.Tensor],
-               generator: torch.Generator | None = None) -> Dict[str, torch.Tensor]:
+               generator: torch.Generator | None = None,
+               r1: torch.Tensor | None = None) -> Dict[str, torch.Tensor]:
     """One step: forward in training mode, backward, optimizer step.
 
-    ``batch`` holds tensors on the model's device; ``generator`` (on that
-    device) draws the voxel grid shifts.  Returns the loss dict and
+    ``batch`` holds tensors on the model's device; the voxel grids shift by
+    ``r1 [2, 3]`` when given, else by a draw from ``generator`` (on that
+    device; every rank's is seeded alike, as every JAX shard gets the same
+    key).  Under data parallelism the gradients, losses and statistics are
+    the group's means (module docstring).  Returns the loss dict and
     ``total_loss`` as detached device tensors: nothing is copied to the host.
     """
-    check_trainable(model.cfg)
-    out = train_forward(model, batch, generator=generator)
-    total, loss_dict = compute_losses(model.cfg, out, batch)
+    cfg = model.cfg
+    check_trainable(cfg)
+    out = train_forward(model, batch, r1=r1, generator=generator)
+    total, loss_dict = compute_losses(cfg, out, batch)
     optimizer.zero_grad(set_to_none=True)
     total.backward()
+    metrics = {k: v.detach() for k, v in dict(loss_dict, total_loss=total).items()}
+    metrics = data_parallel_mean(cfg, model.parameters(), model.buffers(), metrics)
     optimizer.step()
-    return {k: v.detach() for k, v in dict(loss_dict, total_loss=total).items()}
+    return metrics
 
 
 @torch.no_grad()

@@ -1,4 +1,4 @@
-"""Trainer (port of ``gcanet_tpu/train/trainer.py``, one device).
+"""Trainer (port of ``gcanet_tpu/train/trainer.py``).
 
 Mirrors ``trainer_new.py``: workspace and log file (:64-83), Adam/SGD with
 piecewise learning-rate decay (:98-117, :144-155), checkpoint save and
@@ -8,6 +8,13 @@ and best-metric checkpoints with pruning (:396-478).  Scalars go to a JSONL
 stream.  The data is the ABC dataset when ``<data_path>/<train_dataset>``
 exists, else synthetic batches (``data/synthetic.py``) with the JAX
 trainer's seeds.
+
+With ``cfg.mesh_shape = N`` > 1 it is one rank of a data-parallel group of
+``N`` processes (``torchrun --nproc_per_node N``; ``parallel/dist.py``), on
+``cuda:LOCAL_RANK`` unless given a device: each rank loads and collates its
+own chunk of every global batch, the steps average over the group,
+evaluation is rank-strided and merged (``_merge_eval_results``), and only
+rank 0 writes logs, results and checkpoints.
 """
 
 from __future__ import annotations
@@ -25,11 +32,15 @@ from typing import Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gcanet_tpu_torch.config import Config, check_supported, check_trainable
-from gcanet_tpu_torch.data.abc_dataset import ABCDataset, shard_bounds
+from gcanet_tpu_torch.data.abc_dataset import ABCDataset
 from gcanet_tpu_torch.data.synthetic import synth_batch
 from gcanet_tpu_torch.models.registry import build_model, check_instance_model
+from gcanet_tpu_torch.parallel.dist import (broadcast_module, collect_results,
+                                            data_parallel_world, get_dist_info,
+                                            is_main_process, pick_device, shard_bounds)
 from gcanet_tpu_torch.train import metrics as metric_utils
 from gcanet_tpu_torch.train import step as step_lib
 from gcanet_tpu_torch.utils.transfer import fetch
@@ -116,7 +127,8 @@ class Trainer:
     """Trains and evaluates the flagship model on one device: ``cuda``
     unless ``device="cpu"`` is asked for; raises when no card is present.
     With ``cfg.eval`` only the model options are checked (the eval step
-    honours no training knob).
+    honours no training knob).  Under data parallelism it is this process's
+    rank (module docstring).
 
     A model family's trainer (``scene_trainer.SceneTrainer``) sets ``scene``
     and ``synth`` (its synthetic batch maker) and overrides ``_train_step``,
@@ -129,10 +141,9 @@ class Trainer:
         check_instance_model(cfg, type(self).__name__)
         (check_supported if cfg.eval else check_trainable)(cfg, scene=self.scene)
         self.cfg = cfg
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Trainer runs on cuda by default and no CUDA device "
-                               "is available; pass device='cpu' to run on the CPU")
+        self.world = data_parallel_world(cfg)
+        self.main = is_main_process()
+        self.device = pick_device(device, self.world, type(self).__name__)
         if cfg.debug:
             # the reference's set_detect_anomaly(True) (trainer_new.py:212)
             torch.autograd.set_detect_anomaly(True)
@@ -170,6 +181,8 @@ class Trainer:
         self.start_epoch = 0
         if not cfg.not_load_model:
             self.load_checkpoint()
+        if self.world > 1:          # one state on every rank (JAX replicate_to_mesh)
+            broadcast_module(self.model)
 
     def build_dataloaders(self) -> None:
         cfg = self.cfg
@@ -193,12 +206,18 @@ class Trainer:
         """``torch.save`` of epoch, metrics, model and optimizer state.  Each
         tag keeps its own epoch.  The model state sits under
         ``model_state_dict``, as in the reference's checkpoints, so
-        ``Predictor(cfg, checkpoint=path)`` loads it."""
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        ``Predictor(cfg, checkpoint=path)`` loads it.  Under data
+        parallelism every rank calls it, rank 0 writes (every rank holds the
+        same state), and it returns once the file is whole for every rank
+        (a barrier; the JAX package's orbax save is collective too)."""
         path = self._ckpt_path(tag)
-        torch.save({"epoch": epoch, "metrics": dict(metrics or {}),
-                    "model_state_dict": self.model.state_dict(),
-                    "optimizer_state_dict": self.optimizer.state_dict()}, path)
+        if self.main:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
+            torch.save({"epoch": epoch, "metrics": dict(metrics or {}),
+                        "model_state_dict": self.model.state_dict(),
+                        "optimizer_state_dict": self.optimizer.state_dict()}, path)
+        if self.world > 1:
+            dist.barrier()
         return path
 
     def load_checkpoint(self, tag: str = "latest") -> None:
@@ -213,7 +232,9 @@ class Trainer:
 
     def _prune_checkpoints(self, epoch: int) -> None:
         """Keep the ``eval{N}`` checkpoints of epochs ``2**k - 1`` and the two
-        most recent saves (softgroup/util/utils.py:88-104)."""
+        most recent saves (softgroup/util/utils.py:88-104); rank 0 only."""
+        if not is_main_process():
+            return
         keep = {epoch, epoch - self.cfg.save_interval}
         e = 1
         while e <= epoch:
@@ -228,28 +249,30 @@ class Trainer:
 
     # ------------------------------------------------------------------- data
     def _train_batches(self, epoch: int, num_batches: int | None = None):
-        """Host batches of one epoch: the dataset shuffled with seed
-        ``cfg.seed + epoch`` (its first ``num_batches`` when given), or
-        synthetic batches with the JAX trainer's seeds ``(epoch * 1000 + i)
-        * world + rank``, ``num_batches`` of them, else ``GCA_SYNTH_BATCHES``
-        (32)."""
+        """This rank's host batches of one epoch: its chunk of every global
+        batch of the dataset shuffled with seed ``cfg.seed + epoch`` (the
+        first ``num_batches`` when given), or synthetic batches with the JAX
+        trainer's seeds ``(epoch * 1000 + i) * world + rank``, ``num_batches``
+        of them, else ``GCA_SYNTH_BATCHES`` (32).  A rank collates its chunk
+        itself, so its instance ids index its own instance table, as the
+        step wants them: the JAX trainer's ``rebase_local_batch`` to global
+        ids, which its step then undoes, is not needed."""
         cfg = self.cfg
-        world, rank = 1, 0
+        rank, world = get_dist_info()
         if self.train_data is not None:
-            yield from itertools.islice(
+            return itertools.islice(
                 self.train_data.batches(cfg.batch_size, shuffle=True, seed=cfg.seed + epoch,
                                         shard=(rank, world)), num_batches)
-            return
         lo, hi = shard_bounds(cfg.batch_size, rank, world)
         if num_batches is None:
             num_batches = int(os.environ.get("GCA_SYNTH_BATCHES", "32"))
-        for i in range(num_batches):
-            yield self.synth(cfg, hi - lo, seed=(epoch * 1000 + i) * world + rank)
+        return (self.synth(cfg, hi - lo, seed=(epoch * 1000 + i) * world + rank)
+                for i in range(num_batches))
 
     def _test_batches(self):
-        """Batch-1 eval stream: the test list in order, or the 8 synthetic
-        clouds of seeds ``90000 + i``."""
-        world, rank = 1, 0
+        """Batch-1 eval stream, rank-strided: the test list in order, or the
+        8 synthetic clouds of seeds ``90000 + i``."""
+        rank, world = get_dist_info()
         if self.test_data is not None:
             yield from self.test_data.batches(1, shuffle=False, stride=(rank, world))
             return
@@ -262,15 +285,17 @@ class Trainer:
         lr = step_lib.lr_for_epoch(self.cfg, epoch)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
-        self.train_viz.log_scalars({"lr": lr}, epoch)
+        if self.main:
+            self.train_viz.log_scalars({"lr": lr}, epoch)
         return lr
 
     def train_one_epoch(self, epoch: int, num_batches: int | None = None
                         ) -> List[Dict[str, torch.Tensor]]:
         """One epoch (``_train_batches``), the next batches loaded and copied
-        while a step runs.  Returns every step's metrics as device tensors;
-        they are copied to the host only every ``LOG_EVERY`` batches, to log
-        them."""
+        while a step runs.  Returns every step's metrics as device tensors
+        (the group's means under data parallelism); they are copied to the
+        host only every ``LOG_EVERY`` batches, for rank 0 to log them with
+        the global ``example/sec``."""
         cfg = self.cfg
         self._set_lr(epoch)
         history: List[Dict[str, torch.Tensor]] = []
@@ -278,7 +303,7 @@ class Trainer:
         batches = prefetch_to_device(self._train_batches(epoch, num_batches), self.device)
         for batch_idx, batch in enumerate(batches):
             history.append(self._train_step(batch))
-            if (batch_idx + 1) % LOG_EVERY == 0:
+            if (batch_idx + 1) % LOG_EVERY == 0 and self.main:
                 window = history[-LOG_EVERY:]
                 stat = {k: sum(float(m[k]) for m in window) / LOG_EVERY for k in window[0]}
                 stat["example/sec"] = cfg.batch_size * LOG_EVERY / (time.time() - step_t0)
@@ -300,7 +325,9 @@ class Trainer:
         ``output_results.csv`` (and the ``.xyz`` dumps with
         ``resultsSave``).  An object whose evaluation raises is logged,
         counted in ``eval_errors`` and skipped, except on a CUDA error,
-        which is raised.  Returns ``(miou, type_miou)`` averaged."""
+        which is raised.  Under data parallelism each rank evaluates every
+        ``world``-th object and the sums are merged; rank 0 writes.  Returns
+        ``(miou, type_miou)`` averaged."""
         cfg = self.cfg
         stat: Dict[str, float] = {}
         cnt = 0
@@ -329,11 +356,37 @@ class Trainer:
                 "miou": round(miou, 3), "type_miou": round(type_miou, 3),
             })
             cnt += 1
+        stat, cnt = self._merge_eval_results(stat, cnt)
         avg = {k: v / max(cnt, 1) for k, v in stat.items()}
+        self._log_eval(epoch, avg)
+        return avg.get("miou", 0.0), avg.get("type_miou", 0.0)
+
+    def _merge_eval_results(self, stat: Dict[str, float], cnt: int,
+                            extra: Optional[list] = None):
+        """Merge the rank-strided evaluation (softgroup/util/dist.py:51-76):
+        the stat sums and counts summed over ranks, ``extra`` concatenated in
+        rank order, ``_results_rows`` re-joined the same way.  Identity with
+        one process."""
+        if get_dist_info()[1] == 1:
+            return (stat, cnt, extra) if extra is not None else (stat, cnt)
+        merged = collect_results([(stat, cnt, extra)])
+        stat, cnt, extras = {}, 0, []
+        for s, c, e in merged:
+            cnt += c
+            if e is not None:
+                extras.extend(e)
+            for k, v in s.items():
+                stat[k] = stat.get(k, 0.0) + v
+        self._results_rows = collect_results(self._results_rows)
+        return (stat, cnt, extras) if extra is not None else (stat, cnt)
+
+    def _log_eval(self, epoch: int, avg: Dict[str, float]) -> None:
+        """Rank 0: the results CSV, the test scalars and the log line."""
+        if not self.main:
+            return
         self._write_results_csv(epoch, avg)
         self.test_viz.log_scalars(avg, epoch)
         self.logger.info("eval " + " ".join(f"{k}: {v:.4f}" for k, v in sorted(avg.items())))
-        return avg.get("miou", 0.0), avg.get("type_miou", 0.0)
 
     def _save_xyz_dumps(self, batch, type_per_point, merged, miou, type_miou) -> None:
         """Per-object ``.xyz`` dumps: points with predicted and true instance

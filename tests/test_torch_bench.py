@@ -15,6 +15,7 @@ import torch
 from gcanet_tpu.config import bench_config as jbench_config
 from gcanet_tpu_torch import bench
 from gcanet_tpu_torch.config import bench_config
+from gcanet_tpu_torch.parallel import dist as pdist
 
 torch.set_num_threads(1)
 
@@ -74,10 +75,17 @@ def test_bench_main_prints_one_json_line(env, capsys, family, metric):
 
 
 def test_bench_refuses_mesh_and_a_missing_card(env):
+    """``GCA_BENCH_MESH=2`` needs a group of 2 processes: refused, naming
+    torchrun, without one; accepted in a group of 2 (here the group's size
+    as ``get_dist_info`` reports it; the bench runs over 2 real gloo ranks
+    in ``tests/test_torch_parallel.py``)."""
     for k, v in dict(TOY, GCA_BENCH_MESH="2").items():
         env.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="GCA_BENCH_MESH=2.*ROADMAP"):
+    with pytest.raises(ValueError, match="mesh_shape=2.*torchrun --nproc_per_node 2"):
         bench.main(["--device", "cpu"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pdist, "get_dist_info", lambda: (0, 2))
+        assert pdist.data_parallel_world(bench_config()) == 2
     if not torch.cuda.is_available():
         env.setenv("GCA_BENCH_MESH", "1")
         with pytest.raises(RuntimeError, match="cuda"):

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, and a tiny
 train step (also at ``precision="bf16"`` and of the dual-attention
 variant), eval step, scene forward and scene train step against the CPU,
-the reverse-gather backward against the scatter backward, and the mean
-shift and ``simple_clusters`` against the CPU, on the card.
+the reverse-gather backward against the scatter backward, the mean
+shift and ``simple_clusters`` against the CPU, and a data-parallel step of
+two gloo ranks sharing the card against the same two ranks on the CPU.
 
 Needs an NVIDIA GPU; skips without one.  Imports no JAX, so on a machine
 without it run it past the suite's conftest:
@@ -268,3 +269,29 @@ def test_simple_clusters_card_equals_cpu(cuda):
     assert 0 < int(want[1].sum()) < 2400
     torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
     torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=0)
+
+
+def test_data_parallel_step_card_equals_cpu(cuda, tmp_path):
+    """Two gloo ranks share the card (spawned; NCCL refuses two ranks on one
+    card): one tiny data-parallel train step (global B=4, 2 per rank, head
+    in fp32) on the card and then on the CPU, the card's top-k and proposals
+    replayed, held by ``chip_smoke.dp_step_card_vs_cpu`` at phase 7's
+    tolerances; the ranks' weights bit for bit equal."""
+    import chip_smoke
+
+    cfg = Config(num_points=256, batch_size=4, mesh_shape="2", nn_nb=12, nn_nb_inner=8,
+                 offset_knn=6, offset_keypoints=24, max_instances=16,
+                 grouping=GroupingConfig(radius=0.1, min_npoint=5,
+                                         class_numpoint_mean=(-1.0,) * 7,
+                                         similarity_threshold_inst=0.9),
+                 instance_head=InstanceHeadConfig(grid_size=8, max_proposals=24))
+    model = PrimitiveNet(cfg)
+    chip_smoke.push_weights(model)
+    batch = {k: v for k, v in synth_batch(cfg, 4, seed=0).items() if k != "index"}
+    r1 = torch.rand((2, 3), generator=torch.Generator().manual_seed(0))
+    ranks = chip_smoke.run_ranks(
+        [("step", "dp_step_card_vs_cpu",
+          dict(cfg=cfg, state=model.state_dict(), batch=batch, r1=r1))], str(tmp_path))
+    steps = [r["step"] for r in ranks]
+    assert steps[0]["digest"] == steps[1]["digest"]
+    assert all(s["launches"] > 0 for s in steps)

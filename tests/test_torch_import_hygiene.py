@@ -1,5 +1,8 @@
 """The PyTorch port and chip_smoke.py import neither JAX nor the JAX package,
-nor sklearn, which the port does not depend on (its mean shift is its own).
+nor sklearn, which the port does not depend on (its mean shift is its own);
+nor does the rank side of the data-parallel tests (``tests/torch_dp_ranks.py``,
+whose spawned ranks also report their modules:
+``tests/test_torch_parallel.py::test_ranks_import_no_jax``).
 
 Runs in a fresh interpreter (the test process itself has JAX loaded).
 ``gcanet_tpu_torch`` shares its prefix with ``gcanet_tpu``, so module names
@@ -28,9 +31,12 @@ assert {"gcanet_tpu_torch.geometry." + m for m in
         ("primitive_dis", "fit_circle", "fitting", "affinity", "spline")} | {
     "gcanet_tpu_torch.data.process_abc", "gcanet_tpu_torch.utils.io",
     "gcanet_tpu_torch.utils.timing", "gcanet_tpu_torch.utils.profiling"} <= set(names)
+assert {"gcanet_tpu_torch.parallel", "gcanet_tpu_torch.parallel.dist",
+        "gcanet_tpu_torch.parallel.chunks"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import tests.torch_dp_ranks
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "gcanet_tpu", "sklearn"))
 print(len(names), bad)

@@ -60,6 +60,7 @@ from gcanet_tpu_torch.config import (Config, GroupingConfig, InstanceHeadConfig,
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
 from gcanet_tpu_torch.ops import grouping as tgrouping
 from gcanet_tpu_torch.ops import knn as tknn
+from gcanet_tpu_torch.parallel import dist as pdist
 from gcanet_tpu_torch.train import step as tstep
 from gcanet_tpu_torch.utils import precision as tprecision
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
@@ -485,8 +486,15 @@ def test_knobs_accepted_and_still_refused():
         "OffsetPredModuleDual"
     with pytest.raises(ValueError, match="offset_variant"):
         check_supported(_tcfg(offset_variant="triple"))
-    with pytest.raises(NotImplementedError, match="mesh_shape.*ROADMAP"):
+    # data parallelism: mesh_shape=2 needs a group of 2 processes (real
+    # ranks in tests/test_torch_parallel.py)
+    with pytest.raises(ValueError, match="mesh_shape=2.*torchrun --nproc_per_node 2"):
         check_trainable(_tcfg(mesh_shape="2"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pdist, "get_dist_info", lambda: (1, 2))
+        check_trainable(_tcfg(mesh_shape="2"))
+        with pytest.raises(ValueError, match="group of 2"):
+            check_trainable(_tcfg())
 
 
 def test_precision_utils():

@@ -181,8 +181,11 @@ def test_registry_and_scene_knobs():
         with pytest.raises(ValueError, match=knob):
             check_supported(tiny.replace(**{knob: 2}), scene=True)
     check_supported(tiny.replace(encoder_bf16=True), scene=True)      # a flagship knob
-    with pytest.raises(NotImplementedError, match="data-parallel"):
+    # data-parallel serving takes one device per chunk
+    with pytest.raises(ValueError, match="mesh_shape=2.*device=\\[...\\] with 2 devices"):
         ScenePredictor(tiny.replace(mesh_shape="2"), device="cpu")
+    pred = ScenePredictor(tiny.replace(mesh_shape="2"), device=["cpu", "cpu"], scene_grid=8)
+    assert pred.devices == [torch.device("cpu")] * 2 and pred.replicas == [pred.model] * 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ScenePredictor(tiny)

@@ -54,6 +54,7 @@ from gcanet_tpu_torch.config import (Config, GroupingConfig, InstanceHeadConfig,
                                      scene_grouping_defaults)
 from gcanet_tpu_torch.data.synthetic import synth_scene_batch
 from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
+from gcanet_tpu_torch.parallel import dist as pdist
 from gcanet_tpu_torch.train import scene_step
 from gcanet_tpu_torch.train import step as tstep
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
@@ -414,7 +415,10 @@ def test_check_trainable_scene():
         check_trainable(cfg.replace(**kw), scene=True)
         check_trainable(cfg.replace(**kw))        # the flagship trains with them too
     check_trainable(cfg.replace(offset_variant="dual"))   # the flagship's -2 variant trains
-    with pytest.raises(NotImplementedError, match="mesh_shape.*ROADMAP"):
+    with pytest.raises(ValueError, match="mesh_shape=2.*torchrun --nproc_per_node 2"):
+        check_trainable(cfg.replace(mesh_shape="2"), scene=True)
+    with pytest.MonkeyPatch.context() as mp:       # in a group of 2 (real ranks:
+        mp.setattr(pdist, "get_dist_info", lambda: (0, 2))   # tests/test_torch_parallel.py)
         check_trainable(cfg.replace(mesh_shape="2"), scene=True)
     with pytest.raises(ValueError, match="semantic_only"):
         check_trainable(cfg.replace(semantic_only=2), scene=True)

@@ -31,6 +31,7 @@ by a gap to the JAX gradient no wider than 1.5 times the port's own
 bf16-against-fp32 gap.
 """
 
+import concurrent.futures
 import functools
 import json
 
@@ -59,6 +60,7 @@ from gcanet_tpu_torch.models.dgcnn import edge_conv
 from gcanet_tpu_torch.models.layers import GroupNorm, MaskedBatchNorm
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
 from gcanet_tpu_torch.ops import voxelize as tvox
+from gcanet_tpu_torch.parallel import dist as pdist
 from gcanet_tpu_torch.serve import Predictor
 from gcanet_tpu_torch.train import step as tstep
 from gcanet_tpu_torch.train.trainer import Trainer
@@ -119,9 +121,10 @@ def setup():
 
 
 def _jax_step(jcfg, params, stats, batch, key):
+    """The JAX step traced here (the head's dtype is a module global while
+    it traces), returned as a function that compiles and runs it."""
     model = jpn.PrimitiveNet(jcfg)
 
-    @jax.jit
     def run(params, stats, batch, key):
         def f(p):
             out, mut = model.apply({"params": p, "batch_stats": stats}, batch["gt_pc"],
@@ -133,7 +136,9 @@ def _jax_step(jcfg, params, stats, batch, key):
         _, vjp, aux = jax.vjp(f, params, has_aux=True)
         return aux, vjp(jnp.array([1.0, 0.0]))[0], vjp(jnp.array([0.0, 1.0]))[0]
 
-    return jax.tree.map(np.asarray, run(params, stats, jax.tree.map(jnp.asarray, batch), key))
+    args = (params, stats, jax.tree.map(jnp.asarray, batch), key)
+    lowered = jax.jit(run).lower(*args)
+    return lambda: jax.tree.map(np.asarray, lowered.compile()(*args))
 
 
 def _port_step(setup, head_bf16):
@@ -158,21 +163,31 @@ def _port_step(setup, head_bf16):
 
 
 @pytest.fixture(scope="module")
-def step_fp32_head(setup):
-    """Both packages with the instance head in fp32."""
+def jax_steps(setup):
+    """The JAX step with the instance head in fp32 (the JAX head's dtype set
+    for this process only) and in bf16, traced in turn and compiled and run
+    side by side in two threads."""
     jcfg, params, stats, batch, key, _ = setup
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jpn, "InstanceHead", functools.partial(
             JInstanceHead, compute_bf16=False, name="InstanceHead_0"))
-        want = _jax_step(jcfg, params, stats, batch, key)
-    return want, _port_step(setup, head_bf16=False)
+        fp32 = _jax_step(jcfg, params, stats, batch, key)
+    bf16 = _jax_step(jcfg, params, stats, batch, key)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        futures = [pool.submit(fp32), pool.submit(bf16)]
+        return [f.result() for f in futures]
 
 
 @pytest.fixture(scope="module")
-def step_bf16_head(setup):
+def step_fp32_head(setup, jax_steps):
+    """Both packages with the instance head in fp32."""
+    return jax_steps[0], _port_step(setup, head_bf16=False)
+
+
+@pytest.fixture(scope="module")
+def step_bf16_head(setup, jax_steps):
     """Both packages as they are: the instance head in bf16."""
-    jcfg, params, stats, batch, key, _ = setup
-    return _jax_step(jcfg, params, stats, batch, key), _port_step(setup, head_bf16=True)
+    return jax_steps[1], _port_step(setup, head_bf16=True)
 
 
 def _check_grads(got: dict, want_tree) -> None:
@@ -418,22 +433,29 @@ def test_five_steps_loss_decreases():
 @pytest.mark.parametrize("field,value", [("remat", True), ("edge_backward", "revgather:4"),
                                          ("precision", "bf16"), ("mesh_shape", "2")])
 def test_training_refuses_unported_options(tmp_path, field, value):
-    """Training refuses what is not ported: data parallelism (``mesh_shape``
-    > 1).  The knobs it refused until the option surface was ported
-    (``remat``, ``revgather``, ``precision="bf16"``) now pass the check,
-    build a ``Trainer`` and take a finite step (their parity with the JAX
-    package is in ``tests/test_torch_knobs.py``)."""
+    """The knobs training refused until they were ported (``remat``,
+    ``revgather``, ``precision="bf16"``) pass the check, build a
+    ``Trainer`` and take a finite step (their parity with the JAX package
+    is in ``tests/test_torch_knobs.py``).  Data parallelism (``mesh_shape``
+    > 1) needs a group of that many processes: without one the check, the
+    ``Trainer`` and the step refuse it and name torchrun; in a group of 2
+    the check passes (2 real gloo ranks train in
+    ``tests/test_torch_parallel.py``)."""
     cfg = _tcfg().replace(**{field: value}, log_dir=str(tmp_path), data_path=str(tmp_path))
     model = PrimitiveNet(cfg)
     opt = tstep.make_optimizer(cfg, model.parameters())
     batch = tstep.batch_to_device(synth_batch(cfg, B, seed=0), "cpu")
     if field == "mesh_shape":
-        with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP"):
+        launch = "torchrun --nproc_per_node 2"
+        with pytest.raises(ValueError, match=f"{field}=2.*{launch}"):
             check_trainable(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match=launch):
             Trainer(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match=launch):
             tstep.train_step(model, opt, batch)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(pdist, "get_dist_info", lambda: (0, 2))
+            check_trainable(cfg)
         return
     check_trainable(cfg)
     Trainer(cfg, device="cpu").close()
