@@ -137,6 +137,19 @@ Phases (any failure ends the run with a non-zero exit):
      card against CPU exactly, its launches counted from 0 and the sweep
      timed on its mask; the fits, spline functions and ``arap_deform`` card
      against CPU (see ``GEOMETRY_RTOL``).
+ 23. data parallelism: two gloo ranks share the card (``phase_data_parallel``).
+ 24. sequence parallelism, d shards all on ``cuda:0``: ring kNN (N=16384,
+     k=48, d = 2 and 4, euclidean and position-normal) against the
+     unsharded kNN by sorted pick distances, enqueued with no host sync, and
+     card against CPU at N=2048; the sharded trunk against the unsharded
+     model on the card (N=16384, the sharded picks replayed, the share of
+     points whose neighbours differ printed and bounded) and card against
+     CPU at N=2048; ``Predictor.predict_type_sharded`` at the default
+     ``Config`` over 4 shards on one N=131072 cloud (ms, peak memory, a
+     profile, the CC kernel's launches from 0: the path groups nothing) and its
+     ``serve_http`` route at N=16384 against the direct call; the
+     reference-checkpoint writer on phase 8's model (equal to a CPU copy's
+     file, loads back bit for bit); whether TensorBoard events are written.
 Weights are random from a seed, with pushes so that the path after
 grouping does real work (``push_weights``, ``push_scene_weights``).  Each
 phase prints its seconds.
@@ -152,6 +165,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import glob
 import io
 import json
 import os
@@ -186,6 +200,8 @@ from gcanet_tpu_torch.ops import grouping as grouping_ops
 from gcanet_tpu_torch.ops import knn as knn_ops
 from gcanet_tpu_torch.ops import pointnet2 as p2_ops
 from gcanet_tpu_torch.ops import voxelize as vox_ops
+from gcanet_tpu_torch.parallel import sharded_encoder
+from gcanet_tpu_torch.parallel.sharded_knn import ring_knn, shard_rows, sharded_knn
 from gcanet_tpu_torch.serve import Predictor, ScenePredictor
 from gcanet_tpu_torch.serve_http import PredictionServer
 from gcanet_tpu_torch.train import instances as inst_utils
@@ -194,7 +210,7 @@ from gcanet_tpu_torch.train import step as step_lib
 from gcanet_tpu_torch.train import trainer as trainer_mod
 from gcanet_tpu_torch.train.scene_trainer import SceneTrainer
 from gcanet_tpu_torch.train.trainer import Trainer
-from gcanet_tpu_torch.utils import kernels, profiling, timing
+from gcanet_tpu_torch.utils import from_jax, kernels, profiling, reference_ckpt, timing
 from gcanet_tpu_torch.utils.transfer import fetch
 
 # memory rates of the cards this runs on (NVIDIA data sheets), bytes/s
@@ -501,9 +517,9 @@ class CallReplay:
     """Stands in for ``module.<name>`` while the card and then the CPU run
     the same step: a grouping (``build_proposals``, ``build_soft_proposals``;
     a hard threshold on floats that differ in the last bits between the
-    devices, so grouping itself is checked on identical inputs apart) or an
+    devices, so grouping itself is checked on identical inputs apart), an
     index search of ``ops/pointnet2.py`` (``furthest_point_sample``,
-    ``ball_query``).  The card's results (a tensor or a tuple of tensors)
+    ``ball_query``) or the sharded trunk's ring kNN (a list of shards).  The card's results (a tensor or a tuple of tensors)
     are recorded and handed to the CPU, which records whether its own were
     equal, as ``TopkReplay`` does for ``torch.topk``."""
 
@@ -529,6 +545,9 @@ class CallReplay:
         if isinstance(card, torch.Tensor):
             card = card.to(res.device)
             self.own_equal.append(torch.equal(res, card))
+        elif isinstance(card, list):                # per-shard results (ring kNN)
+            card = [c.to(r.device) for c, r in zip(card, res)]
+            self.own_equal.append(all(torch.equal(a, b) for a, b in zip(res, card)))
         else:
             card = _to(card, res[0].device)
             self.own_equal.append(all(torch.equal(a, b) for a, b in zip(res, card)))
@@ -938,7 +957,7 @@ def step_events(module=step_lib, name: str = "train_step"):
         torch.cuda.synchronize()
 
 
-def phase_training(log_dir: str) -> int:
+def phase_training(log_dir: str) -> tuple[int, torch.nn.Module]:
     """Phase 8: full width through ``Trainer.train_one_epoch``: a warm-up
     epoch of 2 steps, then one epoch of 2 + 5 steps whose last 5 are timed.
     The window runs from the start of the epoch's 3rd step to the end of
@@ -946,7 +965,8 @@ def phase_training(log_dir: str) -> int:
     made and copied on the prefetch thread) and not what an epoch does
     once (starting that thread, which slows the epoch's first step; its
     time is printed apart).  Returns the CC kernel's launches in the
-    epoch."""
+    epoch and the trained model (phase 24 writes it as a reference
+    checkpoint)."""
     cfg = Config(log_dir=log_dir, data_path=log_dir)
     warm, steps, b = 2, 5, cfg.batch_size
     trainer = Trainer(cfg)
@@ -990,7 +1010,7 @@ def phase_training(log_dir: str) -> int:
     print(f"[train] launches on the training path ({warm + steps} steps): {launches}; "
           f"masked_min_sweep per timed step {timed_launches / steps:.1f}, sweeps per cloud "
           f"{timed_launches / (steps * b):.1f}")
-    return launches["masked_min_sweep"]
+    return launches["masked_min_sweep"], trainer.model
 
 
 def _profile(label: str, fn) -> None:
@@ -3089,6 +3109,349 @@ def phase_data_parallel(card_name: str, smi: str) -> tuple[dict, dict]:
     return launches, {k: mask[k] for k in ("n", "ms", "plain_ms", "bound_ms")}
 
 
+# ---------------------------------------------------------------- phase 24
+
+SEQ_N = 16384           # the checks' cloud: 2.3x the compiled 7000 points
+SEQ_BIG_N = 131072      # the full-width cloud: 18.7x
+SEQ_K = 48              # the default Config's nn_nb
+# ring kNN against the unsharded kNN: the sorted float64 distances of the
+# picks (ties may reorder indices; tests/test_sharded_knn.py's atol)
+SEQ_DIST_ATOL = 1e-4
+# the sharded trunk against the unsharded model on the card, on the same
+# neighbours (the sharded run's picks replayed): the one-pass sharded
+# GroupNorm and the tile order round differently
+# (tests/test_sharded_encoder.py's tolerance)
+SEQ_FLOAT = dict(rtol=2e-4, atol=2e-4)
+# the share of points whose neighbour set, in any of the three kNN layers,
+# the unsharded program picks otherwise (near-ties under another tile's
+# rounding) must stay below this
+SEQ_FLIP_SHARE = 1e-3
+SEQ_OUTPUTS = ("type_per_point", "param_per_point", "embedding")
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Any operation that synchronises the card with the host raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@contextlib.contextmanager
+def fp32_matmuls():
+    """TF32 off for matmuls and cuDNN inside, restored after."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _seq_cloud(n: int, seed: int) -> torch.Tensor:
+    """One synthetic cloud of ``n`` points as ``[n, 6]`` (xyz ++ normal)."""
+    xyz, nrm = synth_clouds(Config(num_points=n), 1, seed=seed)
+    return torch.from_numpy(np.concatenate([xyz[0], nrm[0]], -1))
+
+
+def _pick_distances(x: torch.Tensor, idx: torch.Tensor, posnormal: bool) -> torch.Tensor:
+    """The float64 distances of each point to its picks, sorted per row."""
+    x = x.double()
+    nb, ctr = x[idx], x[:, None]
+    if posnormal:
+        d = ((nb[..., :3] - ctr[..., :3]) ** 2).sum(-1) * (
+            3.0 - 2.0 * (nb[..., 3:] * ctr[..., 3:]).sum(-1))
+    else:
+        d = ((nb - ctr) ** 2).sum(-1)
+    return torch.sort(d, dim=1).values
+
+
+def _ring_knn_checks() -> None:
+    """Phase 24 (a): ring kNN over ``["cuda:0"] * d`` against the unsharded
+    kNN on the card (N=16384, k=48, plain ``[N, 3]`` and position-normal
+    ``[N, 6]``), enqueued with no host sync (the sync debug mode is first
+    shown to catch a host read); then card against CPU at N=2048, d=2.
+    Both by sorted distance sets."""
+    probe = torch.ones(1, device="cuda")
+    try:
+        with no_host_sync():
+            probe.item()
+        caught = False
+    except RuntimeError:
+        caught = True
+    check(caught, "the sync debug mode let a host read pass")
+    x6 = _seq_cloud(SEQ_N, 11).cuda()
+    small = _seq_cloud(2048, 12)
+    for posnormal in (False, True):
+        x = x6 if posnormal else x6[:, :3].contiguous()
+        metric = sharded_encoder.posnormal_metric if posnormal else None
+        one = (knn_ops.knn_points_normals_indices if posnormal
+               else knn_ops.knn_indices)(x[None], SEQ_K)[0]
+        want = _pick_distances(x, one, posnormal)
+        label = "position-normal [N, 6]" if posnormal else "euclidean [N, 3]"
+        for d in (2, 4):
+            shards = shard_rows(x, ["cuda:0"] * d)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            with no_host_sync():
+                idx = ring_knn(shards, SEQ_K, metric)
+            end.record()
+            end.synchronize()
+            err = float((_pick_distances(x, torch.cat(idx), posnormal) - want).abs().max())
+            print(f"[seq-knn] {label} N={SEQ_N} k={SEQ_K} d={d} over cuda:0 (no host sync): "
+                  f"{start.elapsed_time(end):.2f} ms (first call), sorted pick distances "
+                  f"against the unsharded kNN max_abs_err {err:.3g} (atol {SEQ_DIST_ATOL})")
+            check(err <= SEQ_DIST_ATOL, f"ring kNN ({label}, d={d}) differs from the unsharded kNN")
+        xs = small if posnormal else small[:, :3].contiguous()
+        card = sharded_knn(xs.cuda(), SEQ_K, ["cuda:0"] * 2, metric).cpu()
+        cpu = sharded_knn(xs, SEQ_K, ["cpu"] * 2, metric)
+        err = float((_pick_distances(xs, card, posnormal)
+                     - _pick_distances(xs, cpu, posnormal)).abs().max())
+        print(f"[seq-knn] {label} N=2048 d=2, card against CPU: sorted pick distances "
+              f"max_abs_err {err:.3g}, index rows equal {float((card == cpu).all(1).float().mean()):.4%}")
+        check(err <= SEQ_DIST_ATOL, f"ring kNN ({label}) differs between card and CPU")
+
+
+def sharded_card_vs_cpu(cfg: Config, state: dict, x6: torch.Tensor, d: int) -> tuple:
+    """The sharded trunk over ``["cuda:0"] * d`` (no host sync) and over
+    ``["cpu"] * d`` from the same weights and cloud, TF32 off, the card's
+    ring-kNN picks replayed on the CPU: ``({output: (max_abs_err, within
+    CARD_VS_CPU_FLOAT)}, [the CPU's own picks equal, per ring kNN])``."""
+    card = PrimitiveNet(cfg).cuda().eval()
+    card.load_state_dict(state)
+    cpu = PrimitiveNet(cfg).eval()
+    cpu.load_state_dict(state)
+    card_shards = shard_rows(x6.cuda(), ["cuda:0"] * d)
+    with fp32_matmuls(), CallReplay("ring_knn", sharded_encoder) as replay:
+        with no_host_sync():
+            got = sharded_encoder.sharded_type_forward([card] * d, card_shards)
+        replay.replaying = True
+        want = sharded_encoder.sharded_type_forward([cpu] * d, shard_rows(x6, ["cpu"] * d))
+    errs = {}
+    for name, g, w in zip(SEQ_OUTPUTS, got, want):
+        g, w = torch.cat(g).cpu(), torch.cat(w)
+        check(bool(torch.isfinite(g).all()), f"sharded {name} not finite")
+        errs[name] = (float((g - w).abs().max()), torch.allclose(g, w, **CARD_VS_CPU_FLOAT))
+    return errs, replay.own_equal
+
+
+class _ReplayKnn:
+    """Stands in for ``ops/knn.py::_topk_neighbors`` while the unsharded
+    model runs: its first calls (the forward's three kNN layers) return the
+    sharded run's picks, after recording which rows the unsharded program
+    would pick as another set; later calls (none of the trunk's) pass."""
+
+    def __init__(self, picks: list):
+        self.picks, self.real, self.differ = picks, knn_ops._topk_neighbors, []
+
+    def __enter__(self):
+        knn_ops._topk_neighbors = self
+        return self
+
+    def __exit__(self, *exc):
+        knn_ops._topk_neighbors = self.real
+
+    def __call__(self, neg_dist: torch.Tensor, k: int) -> torch.Tensor:
+        own = self.real(neg_dist, k)
+        if len(self.differ) == len(self.picks):
+            return own
+        pick = self.picks[len(self.differ)].to(own.device)[None]
+        self.differ.append((torch.sort(own, -1).values != torch.sort(pick, -1).values).any(-1))
+        return pick
+
+
+def _sharded_trunk_checks() -> None:
+    """Phase 24 (b): the sharded trunk (default ``Config`` widths, pushed
+    weights) over ``["cuda:0"] * d``, d = 2 and 4, against the unsharded
+    ``PrimitiveNet`` forward on the card at N=16384, TF32 off, on the sharded
+    run's neighbours; the share of points whose neighbours the unsharded
+    program picks otherwise; then card against CPU at N=2048, d=2."""
+    model = PrimitiveNet(Config()).cuda().eval()
+    push_weights(model)
+    x6 = _seq_cloud(SEQ_N, 13).cuda()
+    for d in (2, 4):
+        with fp32_matmuls(), torch.no_grad():
+            with CallReplay("ring_knn", sharded_encoder) as rec:
+                got = sharded_encoder.sharded_type_forward([model] * d,
+                                                           shard_rows(x6, ["cuda:0"] * d))
+            picks = [torch.cat(p) for p in rec.recorded]
+            with _ReplayKnn(picks) as replay:
+                out = model(x6[None, :, :3].contiguous(), x6[None, :, 3:].contiguous())
+        check(len(picks) == 3 and len(replay.differ) == 3, "three kNN layers replayed")
+        moved = (replay.differ[0] | replay.differ[1] | replay.differ[2])[0]
+        share = float(moved.float().mean())
+        errs = []
+        for name, g in zip(SEQ_OUTPUTS, got):
+            g, w = torch.cat(g), getattr(out, name)[0]
+            check(bool(torch.isfinite(g).all()), f"sharded {name} not finite")
+            errs.append(f"{name} {float((g - w).abs().max()):.3g}")
+            check(torch.allclose(g, w, **SEQ_FLOAT),
+                  f"sharded {name} (d={d}) differs from the unsharded model")
+        print(f"[seq-trunk] N={SEQ_N} d={d} over cuda:0 against the unsharded model on the card "
+              f"(the sharded picks replayed; rtol {SEQ_FLOAT['rtol']}, atol "
+              f"{SEQ_FLOAT['atol']}): max_abs_err {', '.join(errs)}; points whose neighbours "
+              f"the unsharded program picks otherwise (per layer "
+              f"{[int(r.sum()) for r in replay.differ]}): {int(moved.sum())} = {share:.4%}")
+        check(share < SEQ_FLIP_SHARE, f"{share:.4%} of the points pick other neighbours")
+    cfg = Config(num_points=2048)
+    errs, own = sharded_card_vs_cpu(cfg, model.state_dict(), _seq_cloud(2048, 14), 2)
+    print(f"[seq-trunk] N=2048 d=2, card against CPU (the card's ring-kNN picks replayed; "
+          f"rtol {CARD_VS_CPU_FLOAT['rtol']}, atol {CARD_VS_CPU_FLOAT['atol']}): "
+          + ", ".join(f"{k} {e:.3g} {'ok' if ok else 'FAIL'}" for k, (e, ok) in errs.items())
+          + f"; the CPU's own picks equal per ring kNN: {own}")
+    check(all(ok for _, ok in errs.values()), "the sharded trunk differs between card and CPU")
+
+
+def _seq_full_width(smi: str) -> int:
+    """Phase 24 (c): ``Predictor`` at the default ``Config`` over
+    ``["cuda:0"] * 4``, ``predict_type_sharded`` on one cloud of N=131072:
+    a warm-up and 3 timed calls, the launch counts from 0 just before.
+    Returns the CC kernel's launches (the path groups nothing: 0)."""
+    d = 4
+    pred = Predictor(Config(mesh_shape=str(d)), device=["cuda:0"] * d)
+    push_weights(pred.model)
+    xyz, nrm = synth_clouds(Config(num_points=SEQ_BIG_N), 1, seed=15)
+    first = pred.predict_type_sharded(xyz[0], nrm[0])                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    ms, wall = [], []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        res = pred.predict_type_sharded(xyz[0], nrm[0])
+        end.record()
+        end.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        ms.append(start.elapsed_time(end))
+    launches = _launches()["masked_min_sweep"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cfg = pred.cfg
+    for key, width in (("type_per_point", cfg.num_primitives), ("param_per_point", 22),
+                       ("embedding", cfg.out_dim)):
+        check(res[key].shape == (SEQ_BIG_N, width) and np.isfinite(res[key]).all(),
+              f"predict_type_sharded {key} {res[key].shape}")
+    check(np.array_equal(res["types"], first["types"]), "a repeat changed the types")
+    _profile(f"predict_type_sharded N={SEQ_BIG_N} d={d}",
+             lambda: pred.predict_type_sharded(xyz[0], nrm[0]))
+    print(f"[seq-serve] predict_type_sharded N={SEQ_BIG_N} ({SEQ_BIG_N / cfg.num_points:.1f}x "
+          f"num_points) d={d} over cuda:0, default Config: "
+          f"{', '.join(f'{t:.1f}' for t in ms)} ms (CUDA events), "
+          f"{', '.join(f'{t:.1f}' for t in wall)} ms (host clock), peak memory {peak:.2f} GiB, "
+          f"types {np.bincount(res['types'], minlength=cfg.num_primitives).tolist()}; "
+          f"masked_min_sweep launches {launches} ({smi})")
+    return launches
+
+
+def _seq_http(smi: str) -> None:
+    """Phase 24 (c): one POST of an N=16384 cloud to ``serve_http`` over
+    ``["cuda:0"] * 2``, as ``.npz`` and as JSON, against the direct call."""
+    srv = PredictionServer(Config(mesh_shape="2"), family="abc", device=["cuda:0"] * 2)
+    push_weights(srv.predictor.model)
+    xyz, nrm = synth_clouds(Config(num_points=SEQ_N), 1, seed=16)
+    want = srv.predictor.predict_type_sharded(xyz[0], nrm[0])
+    ready = threading.Event()
+    thread = threading.Thread(target=srv.serve, kwargs=dict(host="127.0.0.1", port=0,
+                                                            ready_event=ready), daemon=True)
+    thread.start()
+    try:
+        check(ready.wait(60), "the HTTP server did not start")
+        url = f"http://127.0.0.1:{srv.server_address[1]}/v1/predict_type_sharded"
+        buf = io.BytesIO()
+        np.savez(buf, xyz=xyz[0], normals=nrm[0])
+        req = urllib.request.Request(url, data=buf.getvalue(), method="POST", headers={
+            "Content-Type": "application/x-npz", "Accept": "application/x-npz"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, payload = r.status, r.read()
+        wall = time.perf_counter() - t0
+        status_json, body, _ = _post_json(url, json.dumps(
+            {"xyz": xyz[0].tolist(), "normals": nrm[0].tolist()}).encode())
+    finally:
+        srv.shutdown()
+        thread.join(60)
+    check(not thread.is_alive(), "the HTTP server did not stop")
+    check(status == 200 and status_json == 200, f"HTTP status {status}, {status_json}")
+    with np.load(io.BytesIO(payload)) as z:
+        got = {k: z[k] for k in z.files}
+    check(sorted(got) == sorted(want), f"npz arrays {sorted(got)}")
+    check(np.array_equal(got["types"], want["types"])
+          and body == {"types": want["types"].tolist()}, "HTTP types differ")
+    errs = {k: float(np.abs(got[k] - want[k]).max()) for k in SEQ_OUTPUTS}
+    check(all(np.allclose(got[k], want[k], **HTTP_FLOAT) for k in SEQ_OUTPUTS),
+          f"HTTP floats differ: {errs}")
+    print(f"[seq-serve] serve_http /v1/predict_type_sharded N={SEQ_N} over 2 x cuda:0: npz "
+          f"in {wall * 1e3:.1f} ms (host clock), types exact, floats max_abs_err "
+          f"{max(errs.values()):.3g} (rtol/atol {HTTP_FLOAT['atol']}); JSON types exact ({smi})")
+
+
+def _writer_check(model: torch.nn.Module) -> None:
+    """Phase 24 (d): the reference-checkpoint writer on the card's model:
+    its file equals the one written from a CPU copy key for key and value
+    for value, and loads into a fresh card model bit for bit."""
+    cpu = PrimitiveNet(model.cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as root:
+        paths = {side: os.path.join(root, f"{side}.tar") for side in ("card", "cpu")}
+        report = reference_ckpt.save_reference_checkpoint(paths["card"], model, epoch=1)
+        reference_ckpt.save_reference_checkpoint(paths["cpu"], cpu, epoch=1)
+        card_file, cpu_file = (torch.load(paths[s], weights_only=True) for s in ("card", "cpu"))
+        a, b = card_file["model_state_dict"], cpu_file["model_state_dict"]
+        check(list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+              and card_file["epoch"] == cpu_file["epoch"],
+              "the card model's reference file differs from its CPU copy's")
+        fresh = PrimitiveNet(model.cfg).cuda()
+        loaded = from_jax.load_reference_checkpoint(fresh, paths["card"])
+        want = model.state_dict()
+        check(not loaded.missing and all(torch.equal(t, want[k])
+                                         for k, t in fresh.state_dict().items()),
+              "the reference file does not load back bit for bit")
+    print(f"[seq-writer] reference checkpoint of the trained card model: {len(report.mapped)} "
+          f"tensors, {len(report.defaulted)} at neutral defaults; equal to the CPU copy's file "
+          f"key for key; loads into a fresh card model bit for bit")
+
+
+def _tensorboard_check() -> None:
+    """Phase 24 (e): whether ``ScalarLogger`` writes event files here."""
+    import importlib.util
+
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as root:
+        logger = trainer_mod.ScalarLogger(root, "train")
+        logger.log_scalars({"loss": 1.0}, 0)
+        logger.close()
+        events = glob.glob(os.path.join(root, "tb", "train", "events.*"))
+        lines = open(os.path.join(root, "scalars_train.jsonl")).read().splitlines()
+    print(f"[seq-tb] tensorboardX importable: "
+          f"{importlib.util.find_spec('tensorboardX') is not None}; event files written: "
+          f"{len(events)}; JSONL records: {len(lines)}")
+    check(len(lines) == 1, "the JSONL record was not written")
+
+
+def phase_sequence_parallel(smi: str, trained: torch.nn.Module | None = None) -> dict:
+    """Phase 24: sequence parallelism, every shard on ``cuda:0`` (a ring of
+    d shards on one card: the arithmetic of the ring, no peer copy): ring
+    kNN (a), the sharded trunk against the unsharded model and against the
+    CPU (b), ``predict_type_sharded`` at full width and its HTTP route (c);
+    then the reference-checkpoint writer on ``trained`` (phase 8's model; a
+    pushed random one when the phase runs alone) (d) and the TensorBoard
+    events (e).  Returns the CC kernel's launches on the path: 0."""
+    with fp32_matmuls():
+        _ring_knn_checks()
+        _sharded_trunk_checks()
+    launches = _seq_full_width(smi)
+    _seq_http(smi)
+    if trained is None:
+        trained = PrimitiveNet(Config()).cuda()
+        push_weights(trained)
+    _writer_check(trained)
+    _tensorboard_check()
+    return {"sequence parallel": launches}
+
+
 def run_phase(number: int, fn, *args):
     """``fn(*args)``, its host-clock seconds printed."""
     t0 = time.perf_counter()
@@ -3111,7 +3474,7 @@ def main() -> int:
     run_phase(6, phase_profile)
     run_phase(7, phase_train_card_vs_cpu)
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as log_dir:
-        train_launches = run_phase(8, phase_training, log_dir)
+        train_launches, trained = run_phase(8, phase_training, log_dir)
         run_phase(9, phase_train_profile, log_dir)
     run_phase(10, phase_eval_card_vs_cpu)
     cli_launches = run_phase(11, phase_cli, smi)
@@ -3133,12 +3496,14 @@ def main() -> int:
     variants = run_phase(21, phase_variants, card_name, smi)
     geometry, simple_mask = run_phase(22, phase_geometry, card_name, smi)
     dp_launches, dp_mask = run_phase(23, phase_data_parallel, card_name, smi)
+    seq_launches = run_phase(24, phase_sequence_parallel, smi, trained)
     row = kernel_rows[0]
     scene_train_mask = scene_train.pop("mask")
     row["launches_by_path"] = {"serve": row["launches"], "train": train_launches,
                                **cli_launches, "scene_serve": scene["launches"], **scene_train,
                                **{f"bench {k}": v for k, v in bench_res["launches"].items()},
-                               **extras, **variants, **geometry, **dp_launches}
+                               **extras, **variants, **geometry, **dp_launches,
+                               **seq_launches}
     row["launches"] = sum(row["launches_by_path"].values())
     row["scene_mask"] = {k: scene[k] for k in ("n", "ms", "plain_ms", "bound_ms")}
     row["scene_train_mask"] = scene_train_mask

@@ -14,6 +14,10 @@ list of ``N`` devices (``cuda:0`` .. ``cuda:N-1`` by default): a replica of
 the model on each, every batch split into ``N`` contiguous chunks run by
 one thread each (``parallel/chunks.py``), with the one-device result.
 ``predict`` then raises, as the JAX package's does under a mesh.
+
+``Predictor.predict_type_sharded`` serves one cloud larger than
+``num_points`` by sharding its point axis over the same devices (one
+device: a ring of one step).
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from gcanet_tpu_torch.models.registry import build_model, check_instance_model
 from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
 from gcanet_tpu_torch.parallel.chunks import BatchChunks, run_chunks
 from gcanet_tpu_torch.parallel.dist import mesh_size
+from gcanet_tpu_torch.parallel.sharded_encoder import sharded_type_forward
+from gcanet_tpu_torch.parallel.sharded_knn import shard_rows
 from gcanet_tpu_torch.train import instances as inst_utils
 from gcanet_tpu_torch.utils.from_jax import load_reference_checkpoint
 from gcanet_tpu_torch.utils.transfer import fetch
@@ -275,9 +281,29 @@ class Predictor(_DataParallel):
             })
         return results
 
-    def predict_type_sharded(self, xyz: np.ndarray, normals: np.ndarray):
-        raise NotImplementedError("predict_type_sharded is not ported yet "
-                                  "(sequence parallelism, see ROADMAP.md)")
+    def predict_type_sharded(self, xyz: np.ndarray, normals: np.ndarray) -> Dict:
+        """Per-point semantics of ONE cloud of any size ``N`` divisible by
+        the predictor's device count (no relation to ``cfg.num_points``), its
+        point axis sharded over ``self.devices`` (ring kNN and ring-gathered
+        edge convs, ``parallel/sharded_encoder.py``; one device: a ring of
+        one step).  ``xyz/normals [N, 3]`` -> ``type_per_point [N, C]``
+        (argmax: the semantic class), ``param_per_point [N, 22]``,
+        ``embedding [N, out_dim]`` and ``types`` (the argmax), copied to the
+        host once.  Grouping and instance extraction are not run.  The JAX
+        predictor without a mesh shards over every local device; this one
+        only over the devices it was given."""
+        xyz = np.asarray(xyz, np.float32)
+        normals = np.asarray(normals, np.float32)
+        if xyz.ndim != 2 or xyz.shape[1] != 3 or normals.shape != xyz.shape:
+            raise ValueError(f"xyz/normals must be [N, 3] with equal N; got "
+                             f"{list(xyz.shape)} / {list(normals.shape)}")
+        x6 = torch.from_numpy(np.concatenate([xyz, normals], axis=-1))
+        shards = shard_rows(x6, self.devices)
+        outs = sharded_type_forward(self.replicas, shards)
+        home = self.devices[0]
+        tpp, ppp, emb = fetch([torch.cat([t.to(home) for t in parts]) for parts in outs])
+        return {"type_per_point": tpp, "param_per_point": ppp, "embedding": emb,
+                "types": tpp.argmax(-1)}
 
 
 class ScenePredictor(_DataParallel):

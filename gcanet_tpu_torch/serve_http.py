@@ -17,8 +17,13 @@ Endpoints:
   per-point arrays as ``.npz``.
 - ``POST /v1/predict_batch`` -> ``.npz`` or JSON with ``xyz [B, N, 3]``,
   ``B`` the server's ``batch_size``; a JSON list of per-cloud results.
-- ``POST /v1/predict_type_sharded`` answers 404, as a route the server does
-  not have: sequence parallelism is not ported (ROADMAP.md).
+- ``POST /v1/predict_type_sharded`` -> one cloud of any size ``N``
+  divisible by the predictor's device count (abc family): ``xyz``/
+  ``normals`` ``[N, 3]``, the point axis sharded over those devices
+  (``Predictor.predict_type_sharded``); JSON ``{"types": [...]}``, or
+  ``type_per_point``, ``param_per_point``, ``embedding`` and ``types`` as
+  ``.npz`` under ``Accept: application/x-npz``.  400 for the scene family,
+  other shapes or an indivisible ``N``.
 
 A JSON result holds ``types`` (per-point argmax), ``instance_labels`` and
 the instances (``label_id``, ``conf``, ``npoint``, RLE ``pred_mask``).  The
@@ -205,14 +210,14 @@ class PredictionServer:
 
     def handle(self, path: str, body: bytes, content_type: str, accept: str) -> tuple:
         """Route one POST; returns ``(status, content_type, payload)``."""
-        if path not in ("/v1/predict", "/v1/predict_batch"):
-            return _error(404, f"no route {path}" + (
-                " (predict_type_sharded is not ported yet; see ROADMAP.md)"
-                if path == "/v1/predict_type_sharded" else ""))
+        if path not in ("/v1/predict", "/v1/predict_batch", "/v1/predict_type_sharded"):
+            return _error(404, f"no route {path}")
         try:
             xyz, aux = self._decode(body, content_type)
         except Exception as e:
             return _error(400, str(e))
+        if path == "/v1/predict_type_sharded":
+            return self._handle_sharded(xyz, aux, accept)
         n = self.cfg.num_points
         if path == "/v1/predict":
             if xyz.shape != (n, 3):
@@ -240,6 +245,31 @@ class PredictionServer:
             return _error(500, str(e))
         return 200, "application/json", json.dumps(
             [self._result_json(r) for r in results]).encode()
+
+    def _handle_sharded(self, xyz: np.ndarray, aux: np.ndarray, accept: str) -> tuple:
+        """One cloud of any size, its point axis sharded over the
+        predictor's devices (abc family only): ``{"types": [...]}``, or every
+        array as ``.npz`` under ``Accept: application/x-npz``."""
+        if self.family != "abc":
+            return _error(400, "predict_type_sharded serves the abc family")
+        if xyz.ndim != 2 or xyz.shape[1] != 3 or aux.shape != xyz.shape:
+            return _error(400, f"xyz/normals must be [N, 3] with equal N; got "
+                               f"{list(xyz.shape)} / {list(aux.shape)}")
+        d = len(self.predictor.devices)
+        if xyz.shape[0] % d:
+            return _error(400, f"N={xyz.shape[0]} must be a multiple of the device "
+                               f"count ({d})")
+        try:
+            with self._direct_lock:
+                res = self.predictor.predict_type_sharded(xyz, aux)
+        except Exception as e:
+            return _error(500, str(e))
+        if "npz" in (accept or ""):
+            buf = io.BytesIO()
+            np.savez(buf, **{k: np.asarray(v) for k, v in res.items()})
+            return 200, "application/x-npz", buf.getvalue()
+        return 200, "application/json", json.dumps(
+            {"types": res["types"].astype(int).tolist()}).encode()
 
     def health(self) -> Dict:
         return {"status": "ok", "family": self.family, "num_points": self.cfg.num_points,

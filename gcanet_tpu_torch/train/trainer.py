@@ -5,9 +5,10 @@ piecewise learning-rate decay (:98-117, :144-155), checkpoint save and
 resume (:120-142), per-epoch training with throughput every 50 batches
 (:226-247), evaluation with Hungarian-matched mIoU and type mIoU, periodic
 and best-metric checkpoints with pruning (:396-478).  Scalars go to a JSONL
-stream.  The data is the ABC dataset when ``<data_path>/<train_dataset>``
-exists, else synthetic batches (``data/synthetic.py``) with the JAX
-trainer's seeds.
+stream and, where ``tensorboardX`` imports, to TensorBoard event files
+under ``<log_dir>/tb/{train,test}`` (main rank only).  The data is the ABC
+dataset when ``<data_path>/<train_dataset>`` exists, else synthetic
+batches (``data/synthetic.py``) with the JAX trainer's seeds.
 
 With ``cfg.mesh_shape = N`` > 1 it is one rank of a data-parallel group of
 ``N`` processes (``torchrun --nproc_per_node N``; ``parallel/dist.py``), on
@@ -48,13 +49,31 @@ from gcanet_tpu_torch.utils.transfer import fetch
 LOG_EVERY = 50
 
 
+def _make_tb_writer(log_dir: str):
+    """A TensorBoard event-file writer on the main rank, ``None`` elsewhere
+    or when ``tensorboardX`` does not import (the JAX package's guard; the
+    reference writes through tensorboardX on its master process,
+    softgroup/util/logger.py:26-38)."""
+    if not is_main_process():
+        return None
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(log_dir)
+
+
 class ScalarLogger:
     """Appends ``{"step", "time", **scalars}`` records to
-    ``<log_dir>/scalars_<name>.jsonl``."""
+    ``<log_dir>/scalars_<name>.jsonl``, the record; with ``tensorboard``
+    (and ``tensorboardX`` importable, on the main rank) the same scalars
+    and histograms also go to event files under ``<log_dir>/tb/<name>``."""
 
-    def __init__(self, log_dir: str, name: str):
+    def __init__(self, log_dir: str, name: str, tensorboard: bool = True):
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, f"scalars_{name}.jsonl")
+        self.tb = (_make_tb_writer(os.path.join(log_dir, "tb", name)) if tensorboard
+                   else None)
 
     def _append(self, rec: Dict) -> None:
         with open(self.path, "a") as f:
@@ -64,6 +83,10 @@ class ScalarLogger:
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: float(v) for k, v in scalars.items()})
         self._append(rec)
+        if self.tb is not None:
+            for k, v in scalars.items():
+                self.tb.add_scalar(k, float(v), int(step))
+            self.tb.flush()
 
     def log_histogram(self, name: str, values, step: int, bins: int = 16) -> None:
         """A histogram record: min, max, mean, std and bin counts."""
@@ -73,6 +96,14 @@ class ScalarLogger:
                       "min": float(v.min()), "max": float(v.max()),
                       "mean": float(v.mean()), "std": float(v.std()),
                       "counts": counts.tolist(), "edges": np.round(edges, 6).tolist()})
+        if self.tb is not None:
+            self.tb.add_histogram(name, v, int(step))
+
+    def close(self) -> None:
+        """Write out and close the event file (its writer thread too)."""
+        if self.tb is not None:
+            self.tb.close()
+            self.tb = None
 
 
 def prefetch_to_device(batch_iter: Iterable[Dict], device: torch.device | str,
@@ -160,9 +191,12 @@ class Trainer:
         self.build_model_optimizer()
 
     def close(self) -> None:
-        """Detach the log file from the shared ``Train`` logger."""
+        """Detach the log file from the shared ``Train`` logger and close
+        the event files."""
         self.logger.removeHandler(self._log_file)
         self._log_file.close()
+        self.train_viz.close()
+        self.test_viz.close()
 
     # ------------------------------------------------------------------ setup
     def build_workspace(self) -> None:

@@ -306,7 +306,7 @@ def build_library_rules(family: str, params: Mapping) -> list[_Rule]:
     raise ValueError(f"unknown model family {family!r}")
 
 
-def _leaf_pairs(kind: str, has_bias: bool) -> list[tuple[str, str]]:
+def leaf_pairs(kind: str, has_bias: bool) -> list[tuple[str, str]]:
     """(port/reference leaf name, flax leaf name) pairs of one rule."""
     if kind == NORM:
         return [("weight", "scale"), ("bias", "bias")]
@@ -345,7 +345,7 @@ def key_kinds(family: str = "flagship") -> dict[str, str]:
     with its transform kind."""
     return {_key(prefix, leaf): kind
             for prefix, _, kind, has_bias in _rules(family)
-            for leaf, _ in _leaf_pairs(kind, has_bias)}
+            for leaf, _ in leaf_pairs(kind, has_bias)}
 
 
 def _from_flax(kind: str, leaf: str, w: np.ndarray) -> np.ndarray:
@@ -384,7 +384,7 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping | None,
         node = batch_stats if kind == BN_STATS else params
         for name in fpath:
             node = node[name]
-        for leaf, fleaf in _leaf_pairs(kind, has_bias):
+        for leaf, fleaf in leaf_pairs(kind, has_bias):
             w = _from_flax(kind, leaf, np.asarray(node[fleaf] if fleaf else node, np.float32))
             out[_key(prefix, leaf)] = torch.from_numpy(np.array(w, order="C"))
     return out

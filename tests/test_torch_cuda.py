@@ -2,8 +2,9 @@
 train step (also at ``precision="bf16"`` and of the dual-attention
 variant), eval step, scene forward and scene train step against the CPU,
 the reverse-gather backward against the scatter backward, the mean
-shift and ``simple_clusters`` against the CPU, and a data-parallel step of
-two gloo ranks sharing the card against the same two ranks on the CPU.
+shift and ``simple_clusters`` against the CPU, a data-parallel step of
+two gloo ranks sharing the card against the same two ranks on the CPU, and
+the sequence-parallel trunk over shards on the card against the CPU.
 
 Needs an NVIDIA GPU; skips without one.  Imports no JAX, so on a machine
 without it run it past the suite's conftest:
@@ -295,3 +296,21 @@ def test_data_parallel_step_card_equals_cpu(cuda, tmp_path):
     steps = [r["step"] for r in ranks]
     assert steps[0]["digest"] == steps[1]["digest"]
     assert all(s["launches"] > 0 for s in steps)
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_sharded_trunk_card_equals_cpu(cuda, d):
+    """The sharded trunk over ``["cuda:0"] * d`` (enqueued with no host
+    sync: ``torch.cuda.set_sync_debug_mode("error")``) against the same
+    shards on the CPU, the card's ring-kNN picks replayed, at
+    ``chip_smoke.CARD_VS_CPU_FLOAT``; held by
+    ``chip_smoke.sharded_card_vs_cpu``."""
+    import chip_smoke
+
+    cfg = Config(num_points=512, nn_nb=16, nn_nb_inner=8)
+    model = PrimitiveNet(cfg)
+    chip_smoke.push_weights(model)
+    errs, own = chip_smoke.sharded_card_vs_cpu(cfg, model.state_dict(),
+                                               chip_smoke._seq_cloud(512, 2), d)
+    assert len(own) == 3
+    assert all(ok for _, ok in errs.values()), errs

@@ -32,7 +32,9 @@ assert {"gcanet_tpu_torch.geometry." + m for m in
     "gcanet_tpu_torch.data.process_abc", "gcanet_tpu_torch.utils.io",
     "gcanet_tpu_torch.utils.timing", "gcanet_tpu_torch.utils.profiling"} <= set(names)
 assert {"gcanet_tpu_torch.parallel", "gcanet_tpu_torch.parallel.dist",
-        "gcanet_tpu_torch.parallel.chunks"} <= set(names)
+        "gcanet_tpu_torch.parallel.chunks", "gcanet_tpu_torch.parallel.sharded_knn",
+        "gcanet_tpu_torch.parallel.sharded_encoder",
+        "gcanet_tpu_torch.utils.reference_ckpt"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -2,20 +2,27 @@
 ``data/process_abc.py`` (PCA alignment and its inverse, the h5 writer's
 refusal without h5py) and ``utils/io.py`` (ply and xyz files, written byte
 for byte alike and read back alike); and the port's ``utils/timing.py`` and
-``utils/profiling.py`` on the CPU."""
+``utils/profiling.py`` on the CPU; the trainers' ``ScalarLogger``: the
+port's TensorBoard events against the JAX logger's, and its JSONL record
+without them."""
 
 import importlib.util
+import json
+import struct
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from gcanet_tpu.data import process_abc as jabc
+from gcanet_tpu.train.trainer import ScalarLogger as JScalarLogger
 from gcanet_tpu.utils import io as jio
 from gcanet_tpu_torch.data import process_abc as tabc
 from gcanet_tpu_torch.data.abc_dataset import load_h5_object
 from gcanet_tpu_torch.utils import io as tio
+from gcanet_tpu_torch.train.trainer import ScalarLogger
 from gcanet_tpu_torch.utils import profiling, timing
 
 torch.set_num_threads(1)
@@ -111,3 +118,61 @@ def test_profiling_trace_on_cpu(tmp_path):
         torch.mm(a, a)
     assert any(e.key == "aten::mm" for e in prof.key_averages())
     assert [p.name for p in tmp_path.iterdir() if p.name.endswith(".pt.trace.json")]
+
+
+def _events(tb_dir: Path) -> list:
+    """(tag, step, value) of every summary value in the TFRecord event files
+    under ``tb_dir``: a scalar's value, a histogram's fields.  Read with
+    ``tensorboardX``'s protos (``tensorboard`` would import TensorFlow)."""
+    from tensorboardX.proto import event_pb2
+
+    out = []
+    for path in sorted(tb_dir.glob("events.out.tfevents.*")):
+        data = path.read_bytes()
+        off = 0
+        while off < len(data):
+            (length,) = struct.unpack("<Q", data[off:off + 8])
+            event = event_pb2.Event.FromString(data[off + 12:off + 12 + length])
+            off += 12 + length + 4                  # length, its crc, record, its crc
+            for v in event.summary.value:
+                h = v.histo
+                value = v.simple_value if v.WhichOneof("value") == "simple_value" else (
+                    h.min, h.max, h.num, h.sum, h.sum_squares, tuple(h.bucket_limit),
+                    tuple(h.bucket))
+                out.append((v.tag, event.step, value))
+    return out
+
+
+def _feed(logger) -> None:
+    logger.log_scalars({"loss": 1.25, "lr": 1e-3}, 0)
+    logger.log_scalars({"loss": 0.75, "miou": 0.5}, 10)
+    logger.log_histogram("weights", np.random.default_rng(0).standard_normal(200), 10)
+
+
+def test_scalar_logger_events_match_jax(tmp_path):
+    port = ScalarLogger(str(tmp_path / "port"), "train")
+    jax_logger = JScalarLogger(str(tmp_path / "jax"), "train")
+    for logger in (port, jax_logger):
+        _feed(logger)
+    port.close()
+    jax_logger.tb.close()
+    got, want = (_events(tmp_path / side / "tb" / "train") for side in ("port", "jax"))
+    assert [(t, s) for t, s, _ in got] == [("loss", 0), ("lr", 0), ("loss", 10), ("miou", 10),
+                                          ("weights", 10)]
+    assert got == want
+    records = [json.loads(line) for line in (tmp_path / "port" / "scalars_train.jsonl")
+               .read_text().splitlines()]
+    assert [r["step"] for r in records] == [0, 10, 10] and records[2]["histogram"] == "weights"
+
+
+def test_scalar_logger_jsonl_without_events(tmp_path, monkeypatch):
+    off = ScalarLogger(str(tmp_path / "off"), "test", tensorboard=False)
+    monkeypatch.setitem(sys.modules, "tensorboardX", None)       # not importable
+    hidden = ScalarLogger(str(tmp_path / "hidden"), "test")
+    for side, logger in (("off", off), ("hidden", hidden)):
+        assert logger.tb is None
+        _feed(logger)
+        logger.close()
+        assert not (tmp_path / side / "tb").exists()
+        lines = (tmp_path / side / "scalars_test.jsonl").read_text().splitlines()
+        assert [json.loads(line)["step"] for line in lines] == [0, 10, 10]

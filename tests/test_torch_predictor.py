@@ -154,9 +154,7 @@ def test_predict_stream_matches_batch(setup):
 
 
 def test_predictor_refuses_unported_paths(setup):
-    predictor, xyz, nrm, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        predictor.predict_type_sharded(xyz[0], nrm[0])
+    # predict_type_sharded is ported (tests/test_torch_sequence_parallel.py);
     # meanshift is ported (tests/test_torch_meanshift.py); an unknown mode is refused
     with pytest.raises(ValueError, match="cluster_mode='spectral'"):
         Predictor(_port_cfg(), device="cpu", cluster_mode="spectral")

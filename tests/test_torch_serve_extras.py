@@ -238,9 +238,20 @@ def test_healthz_and_unported_route(server):
     with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
         assert json.loads(r.read()) == {"status": "ok", "family": "abc",
                                         "num_points": SERVER_N, "batch_size": 2}
-    status, ctype, payload = _post(base + "/v1/predict_type_sharded", b"{}")
-    assert status == 404 and ctype == "application/json"
-    assert "not ported" in json.loads(payload)["error"]
+    # the sequence-parallel route over the server's one device: a cloud of
+    # twice num_points, the direct call's types; a bad shape answers 400
+    xyz, nrm = synth_clouds(srv.predictor.cfg, 2, seed=6)
+    xyz, nrm = xyz.reshape(-1, 3), nrm.reshape(-1, 3)
+    status, ctype, payload = _post(base + "/v1/predict_type_sharded", _json_body(xyz, nrm))
+    assert status == 200 and ctype == "application/json", payload
+    want = srv.predictor.predict_type_sharded(xyz, nrm)["types"]
+    assert json.loads(payload) == {"types": want.tolist()}
+    status, ctype, payload = _post(base + "/v1/predict_type_sharded",
+                                   _json_body(xyz, nrm[:SERVER_N]))
+    assert status == 400 and ctype == "application/json"
+    assert "equal N" in json.loads(payload)["error"]
+    status, _, _ = _post(base + "/v1/no_such_route", b"{}")
+    assert status == 404
 
 
 def test_json_and_npz_round_trips_equal_predict(server):
@@ -358,7 +369,7 @@ def test_scene_family_route():
         res = json.loads(payload)
         assert len(res["types"]) == len(res["instance_labels"]) == 128
         assert all(isinstance(t, int) for t in res["types"])
-        status, _, _ = srv.handle("/v1/predict_type_sharded", body, "application/json", "")
-        assert status == 404
+        status, _, payload = srv.handle("/v1/predict_type_sharded", body, "application/json", "")
+        assert status == 400 and "abc family" in json.loads(payload)["error"]
     finally:
         srv.batcher.close()
