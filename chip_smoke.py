@@ -150,9 +150,20 @@ Phases (any failure ends the run with a non-zero exit):
      ``serve_http`` route at N=16384 against the direct call; the
      reference-checkpoint writer on phase 8's model (equal to a CPU copy's
      file, loads back bit for bit); whether TensorBoard events are written.
+ 25. the serving bench in-process (``gcanet_tpu_torch.serve_bench.main``,
+     the predictors' own seeded weights, 5 timed calls a path): the
+     flagship (B=10, N=8192) on ``fwd``, ``predict``, ``batch``,
+     ``stream``, the scene family (B=10, grid 48) on the last three; every
+     metric line of ``tools/serve_bench.py`` once, finite and positive, the
+     CC kernel's launches counted from 0 for each family (warm-ups and all
+     paths); the sweep card against its plain version, both timed, on the
+     bench's own N=8192 mask (cloud 0's gated mask under the bench
+     ``Predictor``'s seeded weights); the voxelize parity ops
+     (``ops/voxelize.py``, ``data/native.py``) card against CPU exactly on
+     M=65536 coordinates.
 Weights are random from a seed, with pushes so that the path after
-grouping does real work (``push_weights``, ``push_scene_weights``).  Each
-phase prints its seconds.
+grouping does real work (``push_weights``, ``push_scene_weights``; not in
+phase 25, which serves as the bench does).  Each phase prints its seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -179,10 +190,11 @@ import urllib.request
 import numpy as np
 import torch
 
-from gcanet_tpu_torch import bench, train_new
+from gcanet_tpu_torch import bench, serve_bench, train_new
 from gcanet_tpu_torch.losses import mask2former
 from gcanet_tpu_torch.config import (Config, GroupingConfig, InstanceHeadConfig,
-                                     scene_grouping_defaults)
+                                     bench_config, scene_grouping_defaults)
+from gcanet_tpu_torch.data import native
 from gcanet_tpu_torch.data.synthetic import synth_batch, synth_clouds, synth_scene_batch
 from gcanet_tpu_torch.geometry import affinity, fitting, spline
 from gcanet_tpu_torch.models import pointnet2 as p2_models
@@ -3452,6 +3464,133 @@ def phase_sequence_parallel(smi: str, trained: torch.nn.Module | None = None) ->
     return {"sequence parallel": launches}
 
 
+# phase 25: the serving bench's metric lines, as tools/serve_bench.py names
+# them (B = bench_config().batch_size), and the voxelize parity ops' input
+SERVE_BENCH_METRICS = {
+    "abc": ("serve_forward_clouds_per_sec_b1", "serve_forward_decomp_b1",
+            "serve_forward_clouds_per_sec_b{b}", "serve_forward_decomp_b{b}",
+            "serve_predict_clouds_per_sec_b1", "serve_predict_batch_clouds_per_sec_b{b}",
+            "serve_predict_stream_clouds_per_sec_b{b}"),
+    "scene": ("scene_serve_predict_clouds_per_sec_b1",
+              "scene_serve_predict_batch_clouds_per_sec_b{b}",
+              "scene_serve_predict_stream_clouds_per_sec_b{b}"),
+}
+VOXELIZE_M = 65536
+
+
+def _serve_bench_run(family: str, argv: list[str], smi: str) -> int:
+    """One in-process ``serve_bench.main`` run: every expected metric line
+    once with a finite positive value, the sweeps' line before them; the
+    CC kernel's launches, counted from 0, are returned."""
+    b = bench_config().batch_size
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        lines = serve_bench.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = _launches()["masked_min_sweep"]
+    printed = [json.loads(line) for line in out.getvalue().splitlines()]
+    check(printed == lines, f"serve_bench {family}: printed {printed}, returned {lines}")
+    check(set(lines[0]) == {"sweeps_per_cloud"},
+          f"serve_bench {family}: the first line is {lines[0]}")
+    rows = lines[1:]
+    want = sorted(m.format(b=b) for m in SERVE_BENCH_METRICS[family])
+    check(sorted(r["metric"] for r in rows) == want,
+          f"serve_bench {family}: metrics {[r['metric'] for r in rows]}, want {want}")
+    for r in rows:
+        value = r.get("value", r.get("device_ms_per_cloud"))
+        check(np.isfinite(value) and value > 0, f"serve_bench {family}: {r}")
+        if "fetch_ms_per_cloud" in r:
+            check(np.isfinite(r["fetch_ms_per_cloud"]), f"serve_bench {family}: {r}")
+    check(launches > 0, f"masked_min_sweep was not launched by serve_bench {family}")
+    for line in lines:
+        print(f"[serve_bench] {family}: {json.dumps(line)}")
+    print(f"[serve_bench] {family}: {seconds:.1f} s, masked_min_sweep {launches} launches, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    return launches
+
+
+def _voxelize_card_vs_cpu(smi: str) -> None:
+    """The voxelize parity ops on M=65536 coordinates (4 batch ids on a
+    48-grid, drawn from numpy seed 0), card against CPU exactly: the
+    features are integers, so the voxel sums are exact in any order (the
+    card's ``index_add_`` adds with atomics) and the means equal."""
+    rng = np.random.default_rng(0)
+    coords = np.concatenate([rng.integers(0, 4, (VOXELIZE_M, 1)),
+                             rng.integers(0, 48, (VOXELIZE_M, 3))], 1).astype(np.int32)
+    feats = rng.integers(-8, 9, (VOXELIZE_M, 6)).astype(np.float32)
+    want = vox_ops.voxelization_idx(torch.from_numpy(coords), VOXELIZE_M)
+    got = vox_ops.voxelization_idx(torch.from_numpy(coords).cuda(), VOXELIZE_M)
+    for name, g, w in zip(("out_coords", "p2v", "num_voxels"), got, want):
+        check(torch.equal(g.cpu(), w), f"voxelization_idx {name}: card differs from CPU")
+    v = int(want[2])
+    native_out, native_p2v, native_v = native.voxelize_idx(coords)
+    check(native_v == v and np.array_equal(native_out, want[0][:v].numpy())
+          and np.array_equal(native_p2v, want[1].numpy()),
+          "data/native.py voxelize_idx differs from voxelization_idx")
+    mean_cpu = vox_ops.voxelize_mean(torch.from_numpy(feats), want[1], VOXELIZE_M)
+    feats_card = torch.from_numpy(feats).cuda()
+    mean_card = vox_ops.voxelize_mean(feats_card, got[1], VOXELIZE_M)
+    check(torch.equal(mean_card.cpu(), mean_cpu), "voxelize_mean: card differs from CPU")
+    coords_card = torch.from_numpy(coords).cuda()
+    idx_ms = time_graph(lambda: vox_ops.voxelization_idx(coords_card, VOXELIZE_M), 10)
+    mean_ms = time_graph(lambda: vox_ops.voxelize_mean(feats_card, got[1], VOXELIZE_M), 10)
+    print(f"[voxelize] M={VOXELIZE_M}, {v} voxels: card = CPU exactly "
+          f"(voxelization_idx, voxelize_mean, and data/native.py voxelize_idx); "
+          f"voxelization_idx {idx_ms:.3f} ms, voxelize_mean {mean_ms:.3f} ms ({smi})")
+
+
+def _serve_bench_mask(card_name: str, smi: str) -> dict:
+    """The sweep on the serving bench's own input: cloud 0's gated mask
+    (N=8192) under the bench ``Predictor``'s seeded weights, which group
+    far less than the pushed weights of the other phases; card against the
+    plain version, both timed."""
+    cfg = bench_config().replace(using_set_aggr=True)
+    pred = Predictor(cfg, device="cuda")
+    batch = synth_batch(cfg, cfg.batch_size, seed=0)
+    xyz, nrm = (torch.as_tensor(np.asarray(batch[k][:1], np.float32), device="cuda")
+                for k in ("gt_pc", "gt_normal"))
+    with torch.inference_mode():
+        out = pred.model(xyz, nrm)
+    n = cfg.num_points
+    shifted = (xyz[0] + out.pt_offsets).float()
+    nbr, _ = grouping_ops.gated_neighbor_mask(
+        shifted, out.semantic_scores.argmax(-1).to(torch.int32), out.embedding[0].float(),
+        out.param_per_point[0].float(), cfg.num_primitives, cfg.grouping)
+    labels = torch.arange(n, dtype=torch.int32, device="cuda")
+    check(torch.equal(cc.masked_min_sweep(nbr, labels), cc.masked_min_sweep_plain(nbr, labels)),
+          "sweep on the serving bench's mask")
+    ms = time_graph(lambda: cc.masked_min_sweep(nbr, labels), 100)
+    plain_ms = time_graph(lambda: cc.masked_min_sweep_plain(nbr, labels), 10)
+    bound_ms = (n * n + 8 * n) / hbm_rate(card_name) * 1e3
+    print(f"[kernel] masked_min_sweep on the serving bench's N={n} mask ({int(nbr.sum())} "
+          f"edges): {ms * 1e3:.2f} us/sweep, plain {plain_ms * 1e3:.2f} us, bound "
+          f"{bound_ms * 1e3:.2f} us, {bound_ms / ms:.1%} of the bound ({smi})")
+    return {"n": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+
+def phase_serve_bench(card_name: str, smi: str) -> tuple[dict, dict]:
+    """Phase 25: ``gcanet_tpu_torch.serve_bench.main`` in-process at full
+    width, torch's default TF32 settings: the flagship (B=10, N=8192) on
+    all four paths and the scene family (B=10, grid 48) on ``predict``,
+    ``batch`` and ``stream``, 5 timed calls each, the CC kernel's launches
+    counted from 0 for each family's whole run; the sweep on the bench's
+    own mask; then the voxelize parity ops card against CPU.  Returns the
+    launches by path and the mask's times."""
+    torch.backends.cuda.matmul.allow_tf32 = False          # torch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    launches = {
+        "serve_bench abc": _serve_bench_run("abc", ["--iters", "5"], smi),
+        "serve_bench scene": _serve_bench_run(
+            "scene", ["--family", "scene", "--iters", "5", "--paths", "predict,batch,stream"],
+            smi)}
+    mask = _serve_bench_mask(card_name, smi)
+    _voxelize_card_vs_cpu(smi)
+    return launches, mask
+
+
 def run_phase(number: int, fn, *args):
     """``fn(*args)``, its host-clock seconds printed."""
     t0 = time.perf_counter()
@@ -3497,19 +3636,21 @@ def main() -> int:
     geometry, simple_mask = run_phase(22, phase_geometry, card_name, smi)
     dp_launches, dp_mask = run_phase(23, phase_data_parallel, card_name, smi)
     seq_launches = run_phase(24, phase_sequence_parallel, smi, trained)
+    serve_bench_launches, serve_bench_mask = run_phase(25, phase_serve_bench, card_name, smi)
     row = kernel_rows[0]
     scene_train_mask = scene_train.pop("mask")
     row["launches_by_path"] = {"serve": row["launches"], "train": train_launches,
                                **cli_launches, "scene_serve": scene["launches"], **scene_train,
                                **{f"bench {k}": v for k, v in bench_res["launches"].items()},
                                **extras, **variants, **geometry, **dp_launches,
-                               **seq_launches}
+                               **seq_launches, **serve_bench_launches}
     row["launches"] = sum(row["launches_by_path"].values())
     row["scene_mask"] = {k: scene[k] for k in ("n", "ms", "plain_ms", "bound_ms")}
     row["scene_train_mask"] = scene_train_mask
     row["bench_mask"] = bench_res["mask"]
     row["simple_clusters_mask"] = simple_mask
     row["data_parallel_mask"] = dp_mask
+    row["serve_bench_mask"] = serve_bench_mask
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

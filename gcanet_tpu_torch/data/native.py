@@ -1,10 +1,12 @@
-"""Per-object label preparation of the ABC loader (port of ``relabel`` and
-``instance_info`` from ``gcanet_tpu/data/native.py``; the reference's
-dataloader/ABCDataset_new.py:82-98 and :157-178) in vectorised numpy.
+"""Per-object label preparation of the ABC loader (port of ``relabel``,
+``instance_info`` and ``voxelize_idx`` from ``gcanet_tpu/data/native.py``;
+the reference's dataloader/ABCDataset_new.py:82-98 and :157-178, SoftGroup's
+voxelize.cpp:11-96) in vectorised numpy.
 
 The outputs equal the JAX package's native path (``csrc/gcadata.cpp``) bit
 for bit: instance ids follow the first occurrence of each kept raw label,
-centroids are summed in float64 in point order and rounded once to float32.
+centroids are summed in float64 in point order and rounded once to float32,
+voxels are numbered by first occurrence.
 """
 
 from __future__ import annotations
@@ -58,3 +60,15 @@ def instance_info(xyz: np.ndarray, labels: np.ndarray, semantic: np.ndarray,
     offsets = np.float32(-100.0) - xyz
     offsets[ok] = centroid[lbl] - xyz[ok]
     return inst_num, count.astype(np.int32), cls, offsets
+
+
+def voxelize_idx(coords: np.ndarray):
+    """Insertion-ordered voxel dedupe: ``coords [N, 4]`` int (batch, x, y, z)
+    -> ``(out_coords [V, 4] int32, p2v [N] int32, V)``, voxels numbered by
+    the first point that falls in each.  The rows are compared whole, so any
+    int32 coordinates are told apart."""
+    coords = np.ascontiguousarray(coords, np.int32).reshape(-1, 4)
+    _, first, inverse = np.unique(coords, axis=0, return_index=True, return_inverse=True)
+    rank = np.argsort(np.argsort(first))
+    p2v = rank[inverse.reshape(-1)].astype(np.int32)
+    return coords[np.sort(first)], p2v, len(first)

@@ -6,6 +6,10 @@ Each proposal's points are rescaled into a dense G^3 grid
 features, so the gradient of the voxel features flows back into the point
 features.  Training shifts every grid by a random offset
 (``rand_quantize``).
+
+Also the parity ops of SoftGroup's ``voxelize_idx`` / ``voxelize_fp``
+(``voxelization_idx``, ``voxelize_mean``), which no path of the model
+calls.
 """
 
 from __future__ import annotations
@@ -83,3 +87,45 @@ def clusters_voxelization(coords: torch.Tensor,      # [B*N, 3]
     return VoxelizedProposals(feats=vfeats.reshape(p, g3, -1),
                               active=(vcount > 0).reshape(p, g3),
                               entry_voxel=voxel_id.reshape(ch, n_total))
+
+
+def voxelization_idx(coords: torch.Tensor, max_voxels: int):
+    """Parity op for SoftGroup's ``voxelize_idx`` (voxelize.cpp:11-96, mode
+    4; port of ``gcanet_tpu/ops/voxelize.py::voxelization_idx``).
+
+    ``coords [M, 4]`` int (batch, x, y, z) -> ``(out_coords [max_voxels, 4],
+    p2v [M] int32, num_voxels)``: voxels are numbered by first occurrence,
+    as the reference's insertion-ordered hash map numbers them; rows past
+    ``num_voxels`` are 0.  Needs ``num_voxels <= max_voxels``.  No host
+    sync: ``num_voxels`` is a 0-d int32 tensor."""
+    m = coords.shape[0]
+    dev = coords.device
+    c = coords.to(torch.int32)
+    # lexicographic order over the 4 int32 columns by stable sorts from the
+    # last column to the first (packing them into int64 would need a shift
+    # per column and could not hold four full int32 values)
+    order = torch.arange(m, device=dev)
+    for col in (3, 2, 1, 0):
+        order = order[torch.sort(c[order, col], stable=True).indices]
+    sc = c[order]
+    first = torch.ones(m, dtype=torch.bool, device=dev)
+    first[1:] = (sc[1:] != sc[:-1]).any(dim=1)
+    grp = torch.cumsum(first.to(torch.int64), 0) - 1        # voxel of each sorted row
+    # each voxel's first position in the input; segments past max_voxels
+    # are dropped and empty ones hold int32 max, as jax.ops.segment_min does
+    occ = torch.where(first, order, m)
+    first_pos = torch.full((max_voxels + 1,), torch.iinfo(torch.int32).max,
+                           dtype=torch.int64, device=dev)
+    first_pos.scatter_reduce_(0, grp.clamp(max=max_voxels), occ, "amin")
+    rank = torch.argsort(torch.argsort(first_pos[:max_voxels], stable=True), stable=True)
+    p2v = torch.empty(m, dtype=torch.int32, device=dev)
+    p2v[order] = rank[grp.clamp(max=max_voxels - 1)].to(torch.int32)
+    out_coords = torch.zeros((max_voxels, coords.shape[1]), dtype=coords.dtype, device=dev)
+    out_coords[p2v.long()] = coords
+    return out_coords, p2v, first.sum(dtype=torch.int32)
+
+
+def voxelize_mean(feats: torch.Tensor, p2v: torch.Tensor, max_voxels: int) -> torch.Tensor:
+    """SoftGroup's ``voxelize_fp`` mode 4: the mean of each voxel's point
+    features (0 for an empty voxel); differentiable."""
+    return seg.segment_mean(feats, p2v, max_voxels)

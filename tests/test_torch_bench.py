@@ -16,6 +16,7 @@ from gcanet_tpu.config import bench_config as jbench_config
 from gcanet_tpu_torch import bench
 from gcanet_tpu_torch.config import bench_config
 from gcanet_tpu_torch.parallel import dist as pdist
+from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -13,6 +13,7 @@ import torch
 from gcanet_tpu.ops import cc_pallas
 from gcanet_tpu.ops.grouping import connected_components as jax_cc
 from gcanet_tpu_torch.ops import cc
+from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

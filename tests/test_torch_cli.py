@@ -26,6 +26,7 @@ from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
 from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
 from gcanet_tpu_torch.models.sppnet import PrimitiveNetSPP
 from gcanet_tpu_torch.train.trainer import Trainer, prefetch_to_device
+from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

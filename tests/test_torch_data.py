@@ -25,6 +25,7 @@ from gcanet_tpu_torch.config import Config
 from gcanet_tpu_torch.data import abc_dataset as tds
 from gcanet_tpu_torch.data import augment as taug
 from gcanet_tpu_torch.data import native as tnative
+from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -51,6 +51,7 @@ from gcanet_tpu_torch.train import instances as tinst
 from gcanet_tpu_torch.train import step as tstep
 from gcanet_tpu_torch.train.trainer import Trainer
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
+from tests.torch_once import once, release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -86,12 +87,10 @@ def _fp32_head(mp):
         JInstanceHead, compute_bf16=False, name="InstanceHead_0"))
 
 
-@pytest.fixture(scope="module")
-def jax_run(tmp_path_factory):
+def _jax_run(root):
     """A JAX Trainer with its instance head in fp32 and its initial weights
     pushed: its eval step on eval cloud ``ONE_CLOUD``, then its
-    ``test_one_epoch(0)``."""
-    root = tmp_path_factory.mktemp("jax")
+    ``test_one_epoch(0)`` (written under ``root``)."""
     cfg = _jcfg(root)
     with pytest.MonkeyPatch.context() as mp:
         real_init = jstep.init_state
@@ -118,10 +117,32 @@ def jax_run(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def port_trainer(jax_run, tmp_path_factory):
-    trainer = Trainer(_tcfg(tmp_path_factory.mktemp("port")), device="cpu")
-    trainer.model.load_state_dict(state_dict_from_jax(jax_run.params, jax_run.stats))
+def jax_run(tmp_path_factory):
+    """``_jax_run``, once per session (``tests/torch_once.py``)."""
+    return once(tmp_path_factory, "eval_jax_run",
+                lambda: _jax_run(tmp_path_factory.mktemp("jax")))
+
+
+def _port_trainer(root, params=None, stats=None):
+    trainer = Trainer(_tcfg(root), device="cpu")
+    if params is not None:
+        trainer.model.load_state_dict(state_dict_from_jax(params, stats))
     trainer.model.instance_head.compute_bf16 = False
+    return trainer
+
+
+@pytest.fixture(scope="module")
+def port_trainer(jax_run, tmp_path_factory):
+    trainer = _port_trainer(tmp_path_factory.mktemp("port"), jax_run.params, jax_run.stats)
+    yield trainer
+    trainer.close()
+
+
+@pytest.fixture
+def bare_trainer(tmp_path):
+    """The port's trainer with its own initial weights: for checks of its
+    error handling, which compare nothing with JAX."""
+    trainer = _port_trainer(tmp_path)
     yield trainer
     trainer.close()
 
@@ -252,22 +273,22 @@ def test_trainer_test_one_epoch_matches_jax(jax_run, port_trainer):
             assert g.read() == w.read(), name
 
 
-def test_eval_errors_counted_and_cuda_errors_raised(port_trainer, monkeypatch):
+def test_eval_errors_counted_and_cuda_errors_raised(bare_trainer, monkeypatch):
     def bad_object(model, batch):
         raise ValueError("a bad object")
 
-    before = port_trainer.eval_errors
+    before = bare_trainer.eval_errors
     monkeypatch.setattr(tstep, "eval_step", bad_object)
-    assert port_trainer.test_one_epoch(3) == (0.0, 0.0)
-    assert port_trainer.eval_errors == before + 8
+    assert bare_trainer.test_one_epoch(3) == (0.0, 0.0)
+    assert bare_trainer.eval_errors == before + 8
 
     def lost_device(model, batch):
         raise RuntimeError("CUDA error: an illegal memory access was encountered")
 
     monkeypatch.setattr(tstep, "eval_step", lost_device)
     with pytest.raises(RuntimeError, match="CUDA"):
-        port_trainer.test_one_epoch(4)
-    assert port_trainer.eval_errors == before + 8
+        bare_trainer.test_one_epoch(4)
+    assert bare_trainer.eval_errors == before + 8
 
 
 def test_prune_checkpoints_keeps_the_jax_epochs(tmp_path):

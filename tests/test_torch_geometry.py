@@ -33,6 +33,7 @@ from gcanet_tpu_torch.geometry import fit_circle as tcircle
 from gcanet_tpu_torch.geometry import fitting as tfit
 from gcanet_tpu_torch.geometry import primitive_dis as tdis
 from gcanet_tpu_torch.geometry import spline as tspline
+from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

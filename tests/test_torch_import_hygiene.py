@@ -12,6 +12,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from tests.torch_once import release_memory  # noqa: F401 (autouse)
+
 REPO = Path(__file__).resolve().parents[1]
 
 SCRIPT = r"""
@@ -35,8 +37,12 @@ assert {"gcanet_tpu_torch.parallel", "gcanet_tpu_torch.parallel.dist",
         "gcanet_tpu_torch.parallel.chunks", "gcanet_tpu_torch.parallel.sharded_knn",
         "gcanet_tpu_torch.parallel.sharded_encoder",
         "gcanet_tpu_torch.utils.reference_ckpt"} <= set(names)
+assert {"gcanet_tpu_torch.serve_bench", "gcanet_tpu_torch.ops.voxelize",
+        "gcanet_tpu_torch.data.native"} <= set(names)
 for name in names:
     importlib.import_module(name)
+from gcanet_tpu_torch.data.native import voxelize_idx
+from gcanet_tpu_torch.ops.voxelize import voxelization_idx, voxelize_mean
 import chip_smoke
 import tests.torch_dp_ranks
 bad = sorted(m for m in sys.modules

@@ -10,6 +10,7 @@ from gcanet_tpu.train import instance_eval as jie
 from gcanet_tpu.train.instances import rle_encode as jrle_encode
 from gcanet_tpu_torch.train import instance_eval as tie
 from gcanet_tpu_torch.train.instances import rle_encode
+from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 
 def _same(got, want, path="result"):

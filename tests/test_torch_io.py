@@ -24,6 +24,7 @@ from gcanet_tpu_torch.data.abc_dataset import load_h5_object
 from gcanet_tpu_torch.utils import io as tio
 from gcanet_tpu_torch.train.trainer import ScalarLogger
 from gcanet_tpu_torch.utils import profiling, timing
+from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -64,6 +64,7 @@ from gcanet_tpu_torch.parallel import dist as pdist
 from gcanet_tpu_torch.train import step as tstep
 from gcanet_tpu_torch.utils import precision as tprecision
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
+from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

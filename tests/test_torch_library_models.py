@@ -30,6 +30,7 @@ from gcanet_tpu_torch.models.soft_projection import SoftProjection
 from gcanet_tpu_torch.models.splinenet import DGCNNControlPoints
 from gcanet_tpu_torch.models.transformer import ViT, Transformer
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
+from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

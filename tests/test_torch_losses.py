@@ -22,6 +22,7 @@ from gcanet_tpu.losses import losses as JL
 from gcanet_tpu.ops import mask_iou as jmiou
 from gcanet_tpu_torch.losses import losses as TL
 from gcanet_tpu_torch.ops import mask_iou as tmiou
+from tests.torch_once import once, release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -118,9 +119,10 @@ def _jax_all(d):
 
 
 @pytest.fixture(scope="module")
-def data():
+def data(tmp_path_factory):
     d = _inputs()
-    want = jax.tree.map(np.asarray, jax.jit(_jax_all)(jax.tree.map(jnp.asarray, d)))
+    want = once(tmp_path_factory, "losses_reference", lambda: jax.tree.map(
+        np.asarray, jax.jit(_jax_all)(jax.tree.map(jnp.asarray, d))))
     return d, want
 
 

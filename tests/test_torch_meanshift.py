@@ -37,6 +37,7 @@ from gcanet_tpu_torch.models.offset import keypoint_permutation
 from gcanet_tpu_torch.ops.mathutil import safe_norm
 from gcanet_tpu_torch.serve import Predictor
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
+from tests.torch_once import once, release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -110,15 +111,18 @@ GROUP = dict(radius=0.3, similarity_threshold_inst=0.9, class_numpoint_mean=(-1.
 HEAD = dict(grid_size=8, max_proposals=24)
 
 
-@pytest.fixture(scope="module")
-def predictors():
-    cfg = JConfig(**SMALL, grouping=JGroupingConfig(**GROUP), instance_head=JIHConfig(**HEAD))
-    model = JPrimitiveNet(cfg)
+def _jax_init(model):
     z = jnp.zeros((1, N, 3))
     v = jax.jit(lambda r: model.init({"params": r}, z, z, train=True, rng=r))(
         jax.random.PRNGKey(0))
-    params = jax.tree.map(np.array, v["params"])
-    stats = jax.tree.map(np.array, v["batch_stats"])
+    return jax.tree.map(np.array, (v["params"], v["batch_stats"]))
+
+
+@pytest.fixture(scope="module")
+def predictors(tmp_path_factory):
+    cfg = JConfig(**SMALL, grouping=JGroupingConfig(**GROUP), instance_head=JIHConfig(**HEAD))
+    model = JPrimitiveNet(cfg)
+    params, stats = once(tmp_path_factory, "meanshift_init", lambda: _jax_init(model))
     # the pushes of test_torch_predictor.py, so the instance path keeps instances
     params["OffsetPredModule_0"]["Dense_0"]["kernel"] *= 0.05
     params["InstanceHead_0"]["Dense_0"]["bias"][0] += 10.0

@@ -9,6 +9,7 @@ import torch
 
 from gcanet_tpu.train import metrics as jmetrics
 from gcanet_tpu_torch.train import metrics as tmetrics
+from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

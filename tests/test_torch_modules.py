@@ -28,6 +28,7 @@ from gcanet_tpu_torch.config import Config, InstanceHeadConfig
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
 from gcanet_tpu_torch.ops import knn as tknn
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
+from tests.torch_once import once, release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -53,16 +54,21 @@ def perturb(tree, rng):
     return out
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg = JConfig(**SMALL, instance_head=JIHConfig(grid_size=G, max_proposals=P))
-    jmodel = JPrimitiveNet(jcfg)
+def _jax_init(jmodel):
     z = jnp.zeros((1, N, 3))
     v = jax.jit(lambda r: jmodel.init({"params": r}, z, z, train=True, rng=r))(
         jax.random.PRNGKey(0))
+    return jax.tree.map(np.asarray, (v["params"], v["batch_stats"]))
+
+
+@pytest.fixture(scope="module")
+def models(tmp_path_factory):
+    jcfg = JConfig(**SMALL, instance_head=JIHConfig(grid_size=G, max_proposals=P))
+    jmodel = JPrimitiveNet(jcfg)
+    init_params, init_stats = once(tmp_path_factory, "modules_init", lambda: _jax_init(jmodel))
     rng = np.random.default_rng(0)
-    params = perturb(jax.tree.map(np.asarray, v["params"]), rng)
-    stats = perturb(jax.tree.map(np.asarray, v["batch_stats"]), rng)
+    params = perturb(init_params, rng)
+    stats = perturb(init_stats, rng)
     tmodel = PrimitiveNet(Config(**SMALL, instance_head=InstanceHeadConfig(
         grid_size=G, max_proposals=P)))
     tmodel.load_state_dict(state_dict_from_jax(params, stats))

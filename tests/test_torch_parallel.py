@@ -1,7 +1,7 @@
 """Data parallelism of the port against the JAX package's mesh paths.
 
-Two gloo ranks on the CPU (``tests/torch_dp_ranks.py``, started once for the
-module with ``spawn``, so they import this module's JAX nowhere) take:
+Two gloo ranks on the CPU (``tests/torch_dp_ranks.py``, started once per
+test session with ``spawn``, so they import this module's JAX nowhere) take:
   * one flagship train step (N=192, global B=4, 2 per rank; K=12, P=24,
     instance grid 8) with the instance head in fp32 and in bf16, against
     ``make_train_step(..., mesh)`` over a 2-device mesh of the conftest's
@@ -53,7 +53,6 @@ chunk alone would judge otherwise), and the flagship equals the JAX
 tolerances.
 """
 
-import concurrent.futures
 import csv
 import dataclasses
 import functools
@@ -99,6 +98,7 @@ from gcanet_tpu_torch.train.trainer import Trainer
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
 from tests import test_torch_scene_train as scene_tt
 from tests import torch_dp_ranks
+from tests.torch_once import once, release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -231,10 +231,14 @@ BENCH_ENV = {"GCA_BENCH_BATCH": "2", "GCA_BENCH_POINTS": "128", "GCA_BENCH_PROPO
 
 
 @pytest.fixture(scope="module")
-def ranks(inputs):
-    """Start the two ranks, compute the JAX references meanwhile, collect
-    the ranks' results: ``(per-rank results, JAX references)``."""
-    x = inputs
+def ranks(request, tmp_path_factory):
+    """The two ranks' results, one dict per rank: started, run and collected
+    once per session (``tests/torch_once.py``)."""
+    return once(tmp_path_factory, "parallel_ranks",
+                lambda: _run_ranks(request.getfixturevalue("inputs")))
+
+
+def _run_ranks(x):
     cfg = _tcfg(mesh_shape="2")
     _, s_cfg = scene_tt._cfgs()
     jobs = [
@@ -269,46 +273,6 @@ def ranks(inputs):
     for p in procs:
         p.start()
     try:
-        # each reference runs in a thread as soon as it exists (a JAX step is
-        # traced here, holding the interpreter; compiling and running it, and
-        # the torch evaluations, release it)
-        with pytest.MonkeyPatch.context() as mp, \
-                concurrent.futures.ThreadPoolExecutor(6) as pool:
-            mp.setattr(tsg, "SoftGroupNet", functools.partial(
-                tsg.SoftGroupNet, scene_grid=SCENE_GRID, channels=SCENE_CH))
-            # one process's evaluation, for the merged one's
-            futures = {
-                "eval_abc": pool.submit(
-                    _eval_one_process, _tcfg(log_dir=str(x.root / "one"),
-                                             data_path=str(x.root / "none")), x.state, Trainer),
-                "eval_scene": pool.submit(
-                    _eval_one_process, _scene_trainer_cfg(x.root / "scene_one"), x.s_state,
-                    SceneTrainer)}
-            for name, head_fp32 in (("fp32", True), ("bf16", False)):
-                with pytest.MonkeyPatch.context() as head:
-                    if head_fp32:
-                        head.setattr(jpn, "InstanceHead", functools.partial(
-                            JInstanceHead, compute_bf16=False, name="InstanceHead_0"))
-                    futures[name] = pool.submit(_lower_mesh_step(
-                        lambda tx, mesh: jstep.make_train_step(
-                            _jcfg(), jpn.PrimitiveNet(_jcfg()), tx, mesh),
-                        x.params, x.stats, x.batch, x.key))
-            jcfg_scene = scene_tt._cfgs()[0]
-            futures["scene"] = pool.submit(_lower_mesh_step(
-                lambda tx, mesh: jscene_step.make_scene_train_step(
-                    jcfg_scene, jsg.SoftGroupNet(jcfg_scene, scene_grid=SCENE_GRID,
-                                                 channels=SCENE_CH), tx, mesh),
-                x.s_params, x.s_stats, x.s_batch, x.key))
-            with pytest.MonkeyPatch.context() as init:     # its state: the serving weights
-                init.setattr(jstep, "init_state", lambda cfg, model, tx, rng: jstep.TrainState(
-                    x.serve_params, x.serve_stats, tx.init(x.serve_params), jnp.asarray(0)))
-                jpred = JPredictor(JConfig(**SERVE, mesh_shape="2",
-                                           grouping=JGroupingConfig(**SERVE_GROUP),
-                                           instance_head=JIHConfig(grid_size=8,
-                                                                   max_proposals=24)))
-            assert jpred.mesh is not None and jpred.mesh.devices.size == WORLD
-            futures["predictor"] = pool.submit(jpred.predict_batch, *x.clouds)
-            want = {k: f.result() for k, f in futures.items()}
         got = dict(queue.get(timeout=600) for _ in procs)
     finally:
         for p in procs:
@@ -317,16 +281,79 @@ def ranks(inputs):
                 p.terminate()
     for r in range(WORLD):
         assert isinstance(got[r], dict), f"rank {r} failed:\n{got[r]}"
-    return [got[r] for r in range(WORLD)], want
+    return [got[r] for r in range(WORLD)]
+
+
+def _mesh_step_ref(x, head_fp32):
+    """``make_train_step`` over the 2-device mesh, the head in fp32 or bf16."""
+    with pytest.MonkeyPatch.context() as head:
+        if head_fp32:
+            head.setattr(jpn, "InstanceHead", functools.partial(
+                JInstanceHead, compute_bf16=False, name="InstanceHead_0"))
+        run = _lower_mesh_step(
+            lambda tx, mesh: jstep.make_train_step(_jcfg(), jpn.PrimitiveNet(_jcfg()), tx, mesh),
+            x.params, x.stats, x.batch, x.key)
+    return run()
+
+
+def _scene_mesh_step_ref(x):
+    jcfg = scene_tt._cfgs()[0]
+    return _lower_mesh_step(
+        lambda tx, mesh: jscene_step.make_scene_train_step(
+            jcfg, jsg.SoftGroupNet(jcfg, scene_grid=SCENE_GRID, channels=SCENE_CH), tx, mesh),
+        x.s_params, x.s_stats, x.s_batch, x.key)()
+
+
+def _eval_ref(x, family):
+    """One process's evaluation, for the merged one's."""
+    if family == "abc":
+        return _eval_one_process(
+            _tcfg(log_dir=str(x.root / "one"), data_path=str(x.root / "none")), x.state, Trainer)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tsg, "SoftGroupNet", functools.partial(
+            tsg.SoftGroupNet, scene_grid=SCENE_GRID, channels=SCENE_CH))
+        return _eval_one_process(_scene_trainer_cfg(x.root / "scene_one"), x.s_state,
+                                 SceneTrainer)
+
+
+def _predictor_ref(x):
+    """The JAX ``Predictor`` over a 2-device mesh, its state the serving
+    weights, on the serving clouds."""
+    with pytest.MonkeyPatch.context() as init:
+        init.setattr(jstep, "init_state", lambda cfg, model, tx, rng: jstep.TrainState(
+            x.serve_params, x.serve_stats, tx.init(x.serve_params), jnp.asarray(0)))
+        jpred = JPredictor(JConfig(**SERVE, mesh_shape="2",
+                                   grouping=JGroupingConfig(**SERVE_GROUP),
+                                   instance_head=JIHConfig(grid_size=8, max_proposals=24)))
+    assert jpred.mesh is not None and jpred.mesh.devices.size == WORLD
+    return jpred.predict_batch(*x.clouds)
+
+
+REFS = {"fp32": functools.partial(_mesh_step_ref, head_fp32=True),
+        "bf16": functools.partial(_mesh_step_ref, head_fp32=False),
+        "scene": _scene_mesh_step_ref,
+        "eval_abc": functools.partial(_eval_ref, family="abc"),
+        "eval_scene": functools.partial(_eval_ref, family="scene"),
+        "predictor": _predictor_ref}
+
+
+@pytest.fixture(scope="module")
+def refs(inputs, tmp_path_factory):
+    """``refs(name)``: a reference of ``REFS`` (the JAX mesh steps, one
+    process's evaluations, the JAX mesh ``Predictor``), each built once per
+    session on first use: one worker builds each, and two workers may
+    build two different ones at the same time."""
+    return lambda name: once(tmp_path_factory, f"parallel_{name}",
+                             lambda: REFS[name](inputs))
 
 
 def test_ranks_import_no_jax(ranks):
-    for r in ranks[0]:
+    for r in ranks:
         assert r["modules"] == []
 
 
 def test_dist_helpers_match_jax(ranks):
-    got = [r["gathers"] for r in ranks[0]]
+    got = [r["gathers"] for r in ranks]
     rows = [jdist._encode_part(p) for p in PARTS]
     want = jdist._decode_rows([np.pad(e, (0, max(map(len, rows)) - len(e))) for e in rows],
                               [len(e) for e in rows])
@@ -456,9 +483,9 @@ def _check_new_params(got, want, want_grads, held, lr, bf16_stats):
 
 
 @pytest.mark.parametrize("head", ["fp32", "bf16"])
-def test_flagship_step_matches_jax_mesh(inputs, ranks, head):
-    results = [r[head] for r in ranks[0]]
-    j_params, j_stats, j_grads, j_metrics = ranks[1][head]
+def test_flagship_step_matches_jax_mesh(ranks, refs, head):
+    results = [r[head] for r in ranks]
+    j_params, j_stats, j_grads, j_metrics = refs(head)
     _ranks_agree(results)
     _is_mean_of_own_gradients(results)
     got = results[0]
@@ -470,15 +497,15 @@ def test_flagship_step_matches_jax_mesh(inputs, ranks, head):
 
     want_grads = _grads_dict(j_grads)
     held = _check_gradient(got["grads"], want_grads,
-                           ranks[0][0]["fp32"]["grads"] if head == "bf16" else None)
+                           ranks[0]["fp32"]["grads"] if head == "bf16" else None)
     share = _check_new_params(got["state"], state_dict_from_jax(j_params, j_stats), want_grads,
                               held, _tcfg().learning_rate, lambda k: head == "bf16")
     assert share > (0.9 if head == "fp32" else 0.5), share
 
 
-def test_scene_step_matches_jax_mesh(inputs, ranks):
-    results = [r["scene"] for r in ranks[0]]
-    j_params, j_stats, j_grads, j_metrics = ranks[1]["scene"]
+def test_scene_step_matches_jax_mesh(ranks, refs):
+    results = [r["scene"] for r in ranks]
+    j_params, j_stats, j_grads, j_metrics = refs("scene")
     _ranks_agree(results)
     _is_mean_of_own_gradients(results)
     got = results[0]
@@ -513,7 +540,7 @@ def test_trainer_streams_match_jax(ranks, family):
     else:
         jcfg, key, cls = scene_tt._cfgs()[0].replace(max_instances=8), "scene_trainer", \
             JSceneTrainer
-    for rank, res in enumerate(ranks[0]):
+    for rank, res in enumerate(ranks):
         got = res[key]["stream"]
         want = _jax_stream(cls, jcfg, rank, len(got))
         assert len(got) == 2
@@ -530,7 +557,6 @@ def test_trainer_streams_match_jax(ranks, family):
 def _eval_one_process(cfg, state, cls):
     """One process's ``test_one_epoch``: what it returns, the scalars it
     wrote, its result rows."""
-    torch.set_num_threads(1)
     tr = cls(cfg, device="cpu")
     try:
         tr.model.load_state_dict(state)
@@ -548,9 +574,9 @@ def _csv_rows(text):
 
 
 @pytest.mark.parametrize("family", ["abc", "scene"])
-def test_merged_eval_equals_one_process(ranks, family):
-    res = [r["trainer" if family == "abc" else "scene_trainer"] for r in ranks[0]]
-    returned, scalars, rows = ranks[1][f"eval_{family}"]
+def test_merged_eval_equals_one_process(ranks, refs, family):
+    res = [r["trainer" if family == "abc" else "scene_trainer"] for r in ranks]
+    returned, scalars, rows = refs(f"eval_{family}")
     assert [r["eval_objects"] for r in res] == [4, 4]         # rank-strided: 8 objects
     assert [r["main"] for r in res] == [True, False] and res[0]["world"] == WORLD
     # the rows' IDs are each rank's own count where a batch has no index, as in JAX
@@ -575,7 +601,7 @@ def test_merged_eval_equals_one_process(ranks, family):
 def test_train_new_in_a_group(ranks):
     """``train_new.main`` under a group of 2 (as ``torchrun`` starts it):
     one epoch, its merged evaluation, ``--eval``; rank 0 writes."""
-    res = [r["cli"] for r in ranks[0]]
+    res = [r["cli"] for r in ranks]
     assert [r["codes"] for r in res] == [[0, 0], [0, 0]]
     assert {"latest.tar", "max_miou.tar"} <= set(res[0]["checkpoints"])
     first, again = res[0]["records"]
@@ -628,7 +654,7 @@ def test_backend_and_launch_rules(monkeypatch):
 
 
 def test_bench_mesh_line(ranks):
-    rows = [r["bench"] for r in ranks[0]]
+    rows = [r["bench"] for r in ranks]
     for row in rows:
         assert row["metric"] == "train_clouds_per_sec_per_chip_8k_pts"
         assert row["devices"] == WORLD and row["value"] > 0
@@ -680,11 +706,10 @@ def test_predictor_device_list_equals_one_device(inputs):
         Predictor(_serving_cfg(p, mesh_shape="2"), device="cpu")
 
 
-def test_predictor_mesh_matches_jax_mesh_predictor(inputs, ranks):
+def test_predictor_mesh_matches_jax_mesh_predictor(inputs, refs):
     """The port on ``["cpu", "cpu"]`` against the JAX ``Predictor`` over a
-    2-device mesh (its state filled with the same weights; the ``ranks``
-    fixture runs it beside the mesh steps)."""
-    want = ranks[1]["predictor"]
+    2-device mesh (its state filled with the same weights)."""
+    want = refs("predictor")
     got = Predictor(_serving_cfg(24, mesh_shape="2"), inputs.serve_state,
                     device=["cpu", "cpu"]).predict_batch(*inputs.clouds)
     assert sum(len(r["instances"]) for r in got) > 0

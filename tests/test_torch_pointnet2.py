@@ -20,6 +20,7 @@ from gcanet_tpu.ops import pointnet2 as jp2
 from gcanet_tpu_torch.models import pointnet2 as tmods
 from gcanet_tpu_torch.ops import pointnet2 as tp2
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
+from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -37,6 +37,7 @@ from gcanet_tpu_torch.config import Config, GroupingConfig, InstanceHeadConfig
 from gcanet_tpu_torch.data.synthetic import synth_clouds
 from gcanet_tpu_torch.serve import Predictor
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
+from tests.torch_once import once, release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -60,8 +61,8 @@ def _port_cfg():
                   instance_head=InstanceHeadConfig(**HEAD))
 
 
-@pytest.fixture(scope="module")
-def setup():
+def _jax_reference():
+    """The JAX weights (its init, pushed) and ``forward_fast`` on the clouds."""
     model = JPrimitiveNet(_jax_cfg())
     z = jnp.zeros((1, N, 3))
     v = jax.jit(lambda r: model.init({"params": r}, z, z, train=True, rng=r))(
@@ -85,7 +86,15 @@ def setup():
                 out.embedding)
 
     xyz, nrm = synth_clouds(_port_cfg(), B, seed=0)
-    want_dev = forward_fast(params, stats, jnp.asarray(xyz), jnp.asarray(nrm))
+    want_dev = jax.tree.map(np.asarray, forward_fast(params, stats, jnp.asarray(xyz),
+                                                     jnp.asarray(nrm)))
+    return params, stats, xyz, nrm, want_dev
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    params, stats, xyz, nrm, want_dev = once(tmp_path_factory, "predictor_reference",
+                                             _jax_reference)
     predictor = Predictor(_port_cfg(), checkpoint=state_dict_from_jax(params, stats),
                           device="cpu")
     return predictor, xyz, nrm, want_dev

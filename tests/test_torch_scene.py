@@ -43,6 +43,7 @@ from gcanet_tpu_torch.models import registry
 from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
 from gcanet_tpu_torch.serve import ScenePredictor
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
+from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -14,6 +14,7 @@ from gcanet_tpu.config import Config as JConfig
 from gcanet_tpu.data import scene_dataset as jsd
 from gcanet_tpu_torch.config import Config
 from gcanet_tpu_torch.data import scene_dataset as sd
+from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -58,6 +58,7 @@ from gcanet_tpu_torch.parallel import dist as pdist
 from gcanet_tpu_torch.train import scene_step
 from gcanet_tpu_torch.train import step as tstep
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
+from tests.torch_once import once, release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -158,18 +159,37 @@ def setup():
 
 
 @pytest.fixture(scope="module")
-def jax_sem_step():
-    return _jax_step_fn(_cfgs(semantic_only=True)[0], semantic_only=True)
+def jax_sem_steps(setup, tmp_path_factory):
+    """The JAX ``semantic_only`` step, compiled once, on the trunk of the
+    whole step's weights (``"whole"``) and on seed 4's (``"seed4"``); once
+    per session (``tests/torch_once.py``)."""
+    key, _, batch = setup
+
+    def build():
+        step = _jax_step_fn(_cfgs(semantic_only=True)[0], semantic_only=True)
+        whole = (_trunk(t) for t in _weights(seed=0, zero_offsets=True))
+        seed4 = (_trunk(t) for t in _weights(seed=4, zero_offsets=False))
+        return {"whole": step(*whole, batch, key), "seed4": step(*seed4, batch, key)}
+
+    return once(tmp_path_factory, "scene_train_sem_steps", build)
 
 
 @pytest.fixture(scope="module")
-def full_step(setup):
-    """The whole step in both packages from the same pushed weights."""
-    key, r1, batch = setup
-    jcfg, cfg = _cfgs()
-    params, stats = _weights(seed=0, zero_offsets=True)
-    want = _jax_step_fn(jcfg, semantic_only=False)(params, stats, batch, key)
+def jax_full_step(setup, tmp_path_factory):
+    """The JAX whole step from the pushed weights, once per session."""
+    key, _, batch = setup
+    return once(tmp_path_factory, "scene_train_full_step", lambda: _jax_step_fn(
+        _cfgs()[0], semantic_only=False)(*_weights(seed=0, zero_offsets=True), batch, key))
 
+
+@pytest.fixture(scope="module")
+def port_full_step(setup):
+    """The port's whole step from the pushed weights: ``(model, metrics,
+    gradients, the forward's outputs, the gradient of the point-wise losses
+    alone)``."""
+    _, r1, batch = setup
+    cfg = _cfgs()[1]
+    params, stats = _weights(seed=0, zero_offsets=True)
     model = SoftGroupNet(cfg, scene_grid=GRID, channels=CH)
     model.load_state_dict(state_dict_from_jax(params, stats, family="scene"))
     opt = tstep.make_optimizer(cfg, model.parameters())
@@ -186,7 +206,7 @@ def full_step(setup):
                       if not n.startswith("instance_head.")])
     pw = torch.autograd.grad(ld["semantic_loss"] + ld["offset_loss"], ps)
     pointwise = {n: g.numpy() for n, g in zip(names, pw)}
-    return params, want, (model, got, grads, out, pointwise)
+    return model, got, grads, out, pointwise
 
 
 def _flat(d, keys):
@@ -205,10 +225,10 @@ def _check_grads(got: dict, want_tree) -> None:
         np.testing.assert_allclose(got[name], w, rtol=1e-4, atol=floor, err_msg=name)
 
 
-def test_scene_step_matches_jax(setup, full_step, jax_sem_step):
-    key, r1, batch = setup
-    params, (j_params, j_stats, j_grads, j_metrics), (model, got, grads, out, pointwise) = \
-        full_step
+def test_scene_step_matches_jax(jax_full_step, port_full_step, jax_sem_steps):
+    params = _weights(seed=0, zero_offsets=True)[0]
+    j_params, j_stats, j_grads, j_metrics = jax_full_step
+    model, got, grads, out, pointwise = port_full_step
     e = torch.softmax(out.semantic_scores.detach(), -1).numpy()
     assert np.abs(e - model.cfg.grouping.score_thr).min() > 1e-5
     assert int(out.proposals.num) > 0 and j_metrics["num_pos"] > 0, "no positive proposal"
@@ -221,8 +241,7 @@ def test_scene_step_matches_jax(setup, full_step, jax_sem_step):
 
     # the trunk's gradient of the point-wise losses: the JAX semantic_only
     # step on the same trunk weights, batch and statistics
-    _, sem_stats, sem_grads, sem_metrics = jax_sem_step(
-        _trunk(params), _trunk(_weights(seed=0, zero_offsets=True)[1]), batch, key)
+    _, sem_stats, sem_grads, sem_metrics = jax_sem_steps["whole"]
     for k in POINTWISE:
         np.testing.assert_allclose(sem_metrics[k], j_metrics[k], rtol=1e-6, atol=0)
     _check_grads(pointwise, sem_grads)
@@ -242,10 +261,10 @@ def test_scene_step_matches_jax(setup, full_step, jax_sem_step):
                                    **(BF16 if k.startswith("instance_head.") else STATS))
 
 
-def test_semantic_only_step_whole(setup, jax_sem_step):
-    key, r1, batch = setup
+def test_semantic_only_step_whole(setup, jax_sem_steps):
+    _, _, batch = setup
     params, stats = (_trunk(t) for t in _weights(seed=4, zero_offsets=False))
-    j_params, j_stats, j_grads, j_metrics = jax_sem_step(params, stats, batch, key)
+    j_params, j_stats, j_grads, j_metrics = jax_sem_steps["seed4"]
 
     _, cfg = _cfgs(semantic_only=True)
     model = SoftGroupNet(cfg, scene_grid=GRID, channels=CH, semantic_only=True)
@@ -330,12 +349,12 @@ def _as_jax_out(out):
 
 
 @pytest.mark.parametrize("ignored", [False, True])
-def test_scene_losses_on_the_same_outputs_and_ignore(setup, full_step, ignored):
+def test_scene_losses_on_the_same_outputs_and_ignore(setup, port_full_step, ignored):
     """``compute_scene_losses`` against the JAX function on the port's own
     forward outputs (no framework difference left: rtol 1e-6); with every
     label -100 / instance -1 the semantic, offset and class losses are 0."""
     _, _, batch = setup
-    out = full_step[2][3]
+    out = port_full_step[3]
     if ignored:
         batch = dict(batch, semantic=np.full_like(batch["semantic"], -100),
                      I_gt_global=np.full_like(batch["I_gt_global"], -1),

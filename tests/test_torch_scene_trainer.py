@@ -41,6 +41,7 @@ from gcanet_tpu_torch.data import scene_dataset as sd
 from gcanet_tpu_torch.data.synthetic import synth_scene_batch
 from gcanet_tpu_torch.train.scene_trainer import SceneTrainer
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
+from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

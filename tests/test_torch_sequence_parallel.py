@@ -43,6 +43,7 @@ from gcanet_tpu_torch.parallel.sharded_knn import ring_gather, ring_knn, shard_r
 from gcanet_tpu_torch.serve import Predictor, ScenePredictor
 from gcanet_tpu_torch.serve_http import PredictionServer
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
+from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

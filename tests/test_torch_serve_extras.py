@@ -31,6 +31,7 @@ from gcanet_tpu_torch.ops import grouping as tgrouping
 from gcanet_tpu_torch.serve import Predictor
 from gcanet_tpu_torch.serve_http import DynamicBatcher, PredictionServer
 from gcanet_tpu_torch.train import instances as tinst
+from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -31,7 +31,6 @@ by a gap to the JAX gradient no wider than 1.5 times the port's own
 bf16-against-fp32 gap.
 """
 
-import concurrent.futures
 import functools
 import json
 
@@ -65,6 +64,7 @@ from gcanet_tpu_torch.serve import Predictor
 from gcanet_tpu_torch.train import step as tstep
 from gcanet_tpu_torch.train.trainer import Trainer
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
+from tests.torch_once import once, release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -104,15 +104,21 @@ def perturb(tree, rng):
     return out
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = _jcfg(**PUSHED)
+def _init_weights(jcfg):
     z = jnp.zeros((1, N, 3))
     v = jax.jit(lambda r: jpn.PrimitiveNet(jcfg).init({"params": r}, z, z, train=True,
                                                       rng=r))(jax.random.PRNGKey(0))
+    return jax.tree.map(np.array, (v["params"], v["batch_stats"]))
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    jcfg = _jcfg(**PUSHED)
+    init_params, init_stats = once(tmp_path_factory, "train_step_init",
+                                   lambda: _init_weights(jcfg))
     rng = np.random.default_rng(0)
-    params = perturb(jax.tree.map(np.array, v["params"]), rng)
-    stats = perturb(jax.tree.map(np.array, v["batch_stats"]), rng)
+    params = perturb(init_params, rng)
+    stats = perturb(init_stats, rng)
     params["OffsetPredModule_0"]["Dense_0"]["kernel"] *= 0.05
     batch = {k: x for k, x in jsynth_batch(jcfg, B, seed=0).items() if k != "index"}
     key = jax.random.PRNGKey(3)
@@ -162,32 +168,49 @@ def _port_step(setup, head_bf16):
     return model, out, total, ld, as_dict(g_rest), as_dict(g_inst)
 
 
-@pytest.fixture(scope="module")
-def jax_steps(setup):
+def _jax_fp32_head_step(jcfg, params, stats, batch, key):
     """The JAX step with the instance head in fp32 (the JAX head's dtype set
-    for this process only) and in bf16, traced in turn and compiled and run
-    side by side in two threads."""
-    jcfg, params, stats, batch, key, _ = setup
+    for this process only while it traces)."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jpn, "InstanceHead", functools.partial(
             JInstanceHead, compute_bf16=False, name="InstanceHead_0"))
-        fp32 = _jax_step(jcfg, params, stats, batch, key)
-    bf16 = _jax_step(jcfg, params, stats, batch, key)
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        futures = [pool.submit(fp32), pool.submit(bf16)]
-        return [f.result() for f in futures]
+        run = _jax_step(jcfg, params, stats, batch, key)
+    return run()
 
 
 @pytest.fixture(scope="module")
-def step_fp32_head(setup, jax_steps):
+def jax_step_fp32_head(setup, tmp_path_factory):
+    """The JAX step with the instance head in fp32, built once per session
+    (``tests/torch_once.py``)."""
+    jcfg, params, stats, batch, key, _ = setup
+    return once(tmp_path_factory, "train_step_fp32_head",
+                lambda: _jax_fp32_head_step(jcfg, params, stats, batch, key))
+
+
+@pytest.fixture(scope="module")
+def jax_step_bf16_head(setup, tmp_path_factory):
+    """The JAX step as it is (the instance head in bf16), built once per
+    session."""
+    jcfg, params, stats, batch, key, _ = setup
+    return once(tmp_path_factory, "train_step_bf16_head",
+                lambda: _jax_step(jcfg, params, stats, batch, key)())
+
+
+@pytest.fixture(scope="module")
+def port_step_fp32_head(setup):
+    return _port_step(setup, head_bf16=False)
+
+
+@pytest.fixture(scope="module")
+def step_fp32_head(jax_step_fp32_head, port_step_fp32_head):
     """Both packages with the instance head in fp32."""
-    return jax_steps[0], _port_step(setup, head_bf16=False)
+    return jax_step_fp32_head, port_step_fp32_head
 
 
 @pytest.fixture(scope="module")
-def step_bf16_head(setup, jax_steps):
+def step_bf16_head(setup, jax_step_bf16_head):
     """Both packages as they are: the instance head in bf16."""
-    return jax_steps[1], _port_step(setup, head_bf16=True)
+    return jax_step_bf16_head, _port_step(setup, head_bf16=True)
 
 
 def _check_grads(got: dict, want_tree) -> None:
@@ -232,13 +255,13 @@ def test_step_fp32_head_new_batch_stats(setup, step_fp32_head):
         np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), err_msg=k, **STATS)
 
 
-def test_step_bf16_head(setup, step_bf16_head, step_fp32_head):
+def test_step_bf16_head(setup, step_bf16_head, port_step_fp32_head):
     want, got = step_bf16_head
     _check_losses_and_proposals(want, got, BF16)
     _check_grads(got[4], want[1])                # nothing of total - inst_loss is bf16
     w = state_dict_from_jax(want[2], None)
     flat = lambda d: np.concatenate([np.asarray(d[k]).ravel() for k in w])  # noqa: E731
-    g, wv, port_fp32 = flat(got[5]), flat(w), flat(step_fp32_head[1][5])
+    g, wv, port_fp32 = flat(got[5]), flat(w), flat(port_step_fp32_head[5])
     cos = g @ wv / (np.linalg.norm(g) * np.linalg.norm(wv))
     assert cos > 0.9, cos
     # the frameworks differ in bf16 by no more than bf16 moves the port

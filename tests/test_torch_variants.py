@@ -63,6 +63,7 @@ from gcanet_tpu_torch.train_new import main
 from gcanet_tpu_torch.utils import from_jax
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
 from test_torch_knobs import _jax_train_step, _port_grads
+from tests.torch_once import once, release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -236,17 +237,13 @@ def test_dual_forward_matches_jax(monkeypatch):
     assert int(merged[1].sum()) > 0, "no instance kept"
 
 
-@pytest.fixture(scope="module")
-def dual_step():
-    """One dual train step: ``make_train_step`` (head in fp32, gradient
-    kept by the optimizer, forward outputs recorded at its losses) and the
-    port's ``train_forward`` + ``compute_losses`` backward with the head in
-    fp32 and in bf16."""
+def _dual_jax_step():
+    """``make_train_step`` of the dual model (head in fp32, gradient kept by
+    the optimizer, forward outputs recorded at its losses):
+    ``(metrics, grads, new stats), outputs, proposals``."""
     jcfg = _jcfg(offset_variant="dual")
     params, stats = _dual_weights()
-    batch = _batch(jcfg)
     key = jax.random.PRNGKey(3)
-    r1 = np.asarray(jax.random.uniform(jax.random.fold_in(key, 0), (2, 3)))
     outs, props = [], []
     real_losses = jstep.compute_losses
 
@@ -260,17 +257,32 @@ def dual_step():
         mp.setattr(jpn, "InstanceHead", functools.partial(
             JInstanceHead, compute_bf16=False, name="InstanceHead_0"))
         mp.setattr(jstep, "compute_losses", compute_losses)
-        want = _jax_train_step(jcfg, params, stats, batch, key)
+        want = _jax_train_step(jcfg, params, stats, _batch(jcfg), key)
         jax.effects_barrier()
-    tcfg = _tcfg(offset_variant="dual")
-    port = {bf16: _port_grads(tcfg, params, stats, batch, r1, head_bf16=bf16)
-            for bf16 in (False, True)}
-    return params, want, outs[0], props[0], port
+    return want, outs[0], props[0]
+
+
+@pytest.fixture(scope="module")
+def dual_step(tmp_path_factory):
+    """One dual train step: the JAX one (``_dual_jax_step``, once per
+    session, ``tests/torch_once.py``) and, on demand, the port's
+    ``train_forward`` + ``compute_losses`` backward with the head in fp32
+    (``port(False)``) or in bf16 (``port(True)``)."""
+    want, outs, props = once(tmp_path_factory, "variants_dual_step", _dual_jax_step)
+    jcfg = _jcfg(offset_variant="dual")
+    params, stats = _dual_weights()
+    batch = _batch(jcfg)
+    r1 = np.asarray(jax.random.uniform(jax.random.fold_in(jax.random.PRNGKey(3), 0), (2, 3)))
+
+    def port(head_bf16):
+        return _port_grads(_tcfg(offset_variant="dual"), params, stats, batch, r1, head_bf16)
+
+    return params, want, outs, props, port
 
 
 def test_dual_train_step_matches_jax(dual_step):
     params, (metrics, jgrads, jstats), want_out, want_props, port = dual_step
-    model, out, ld, grads = port[False]
+    model, out, ld, grads = port(False)
     assert metrics["num_pos"] > 0 and metrics["inst_loss"] > 0, "no positive proposal"
     for field, w in zip(OUTPUTS, want_out):
         np.testing.assert_allclose(getattr(out, field).detach().numpy(), w, err_msg=field,
@@ -296,7 +308,7 @@ def test_dual_train_step_bf16_head(dual_step):
     """The port's step with its instance head in bf16, as shipped, against
     the JAX fp32-head step: losses at 3e-2, the whole gradient by cosine."""
     _, (metrics, jgrads, _), _, _, port = dual_step
-    _, _, ld, grads = port[True]
+    _, _, ld, grads = port(True)
     for k, w in metrics.items():
         np.testing.assert_allclose(ld[k].detach().numpy(), w, err_msg=k, **BF16)
     want = state_dict_from_jax(jgrads, None)

@@ -21,6 +21,7 @@ from gcanet_tpu.utils import import_torch
 from gcanet_tpu_torch.config import Config
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
 from gcanet_tpu_torch.utils import from_jax, reference_ckpt
+from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -30,14 +31,23 @@ SMALL = dict(num_points=128, nn_nb=8, nn_nb_inner=4, knn_impl="xla")
 
 @pytest.fixture(scope="module")
 def jax_tree():
-    model = JPrimitiveNet(JConfig(**SMALL))
+    """The JAX flagship's trees (shapes by ``jax.eval_shape``, nothing
+    compiled) filled from a numpy seed: every check here is structural or
+    bit for bit, so any values do."""
     z = jnp.zeros((1, 128, 3))
-    v = jax.jit(lambda r: model.init({"params": r}, z, z, train=True, rng=r))(
-        jax.random.PRNGKey(1))
+    shapes = jax.eval_shape(lambda r: JPrimitiveNet(JConfig(**SMALL)).init(
+        {"params": r}, z, z, train=True, rng=r), jax.random.PRNGKey(1))
     rng = np.random.default_rng(1)
-    stats = jax.tree.map(lambda a: (np.asarray(a) + rng.uniform(0.1, 1.0, a.shape))
-                         .astype(np.float32), v["batch_stats"])
-    return jax.tree.map(np.asarray, v["params"]), stats
+
+    def fill(path, s):
+        if path[-1].key == "kernel":
+            w = rng.standard_normal(s.shape) / np.sqrt(np.prod(s.shape[:-1]))
+        else:
+            w = rng.uniform(0.1, 1.0, s.shape)
+        return w.astype(np.float32)
+
+    return tuple(jax.tree_util.tree_map_with_path(fill, shapes[k])
+                 for k in ("params", "batch_stats"))
 
 
 def _port_model():
