@@ -161,9 +161,19 @@ Phases (any failure ends the run with a non-zero exit):
      ``Predictor``'s seeded weights); the voxelize parity ops
      (``ops/voxelize.py``, ``data/native.py``) card against CPU exactly on
      M=65536 coordinates.
+ 26. the per-stage timer and the convergence runs in-process:
+     ``gcanet_tpu_torch.micro_bench.main`` at the bench workload (B=10,
+     N=8192) with every default stage and ``edgebwd``, each line of
+     ``tools/micro_bench.py`` once, in its order, finite and positive;
+     ``convergence_run`` and ``scene_convergence_run`` at their default
+     widths for 20 steps with an eval every 10 (the header names the card;
+     the rows carry the JAX tools' keys; metrics finite and inside [0, 1]);
+     the CC kernel's launches counted from 0 for each of the three; the
+     sweep card against its plain version, both timed, on the ``graph``
+     stage's item-0 mask.
 Weights are random from a seed, with pushes so that the path after
 grouping does real work (``push_weights``, ``push_scene_weights``; not in
-phase 25, which serves as the bench does).  Each phase prints its seconds.
+phases 25 and 26, which run as the tools do).  Each phase prints its seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -180,7 +190,6 @@ import glob
 import io
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import threading
@@ -190,7 +199,8 @@ import urllib.request
 import numpy as np
 import torch
 
-from gcanet_tpu_torch import bench, serve_bench, train_new
+from gcanet_tpu_torch import (bench, convergence_run, micro_bench, scene_convergence_run,
+                              serve_bench, train_new)
 from gcanet_tpu_torch.losses import mask2former
 from gcanet_tpu_torch.config import (Config, GroupingConfig, InstanceHeadConfig,
                                      bench_config, scene_grouping_defaults)
@@ -397,9 +407,8 @@ def _launches() -> dict:
 # ---------------------------------------------------------------- phases
 
 def phase_card() -> tuple[str, str]:
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = timing.device_line("cuda:0")
+    check("power limit not read" not in smi, f"nvidia-smi: {smi}")
     print(f"[card] nvidia-smi: {smi}")
     name = torch.cuda.get_device_name(0)
     print(f"[card] torch: {name}, {torch.cuda.device_count()} device(s), "
@@ -3591,6 +3600,115 @@ def phase_serve_bench(card_name: str, smi: str) -> tuple[dict, dict]:
     return launches, mask
 
 
+# phase 26: the short convergence runs' row keys
+CONVERGENCE_ROWS = {"abc": ("step", "miou", "type_miou", "t_min"),
+                    "scene": ("step", "loss", "sem_miou", "acc", "ap50", "t_min")}
+
+
+def _micro_bench_run(smi: str) -> int:
+    """``micro_bench.main`` in-process at ``bench_config()``, every default
+    stage and ``edgebwd``: the device line, then each line once, as
+    returned, finite and positive (the CPU test holds the names against the
+    JAX tool's); the CC kernel's launches, counted from 0, are returned."""
+    cfg = bench_config()
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        lines = micro_bench.main([",".join(micro_bench.STAGES + micro_bench.OPT_IN)])
+    seconds = time.perf_counter() - t0
+    launches = _launches()["masked_min_sweep"]
+    printed = out.getvalue().splitlines()
+    check(printed[0] == f"device: {smi}", f"micro_bench's device line is {printed[0]!r}")
+    check(printed[1:] == [f"{name:28s} {ms:9.2f} ms" for name, ms in lines],
+          f"micro_bench printed {printed[1:]}, returned {lines}")
+    names = [name for name, _ in lines]
+    check(len(set(names)) == len(names) == len(printed) - 1, f"micro_bench lines {names}")
+    check(all(np.isfinite(ms) and ms > 0 for _, ms in lines), f"micro_bench: {lines}")
+    check(launches > 0, "masked_min_sweep was not launched by micro_bench")
+    for line in printed[1:]:
+        print(f"[micro_bench] {line}")
+    print(f"[micro_bench] B={cfg.batch_size}, N={cfg.num_points}: {seconds:.1f} s, "
+          f"masked_min_sweep {launches} launches, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    return launches
+
+
+def _convergence_run(family: str, module, root: str, smi: str) -> int:
+    """A short convergence run in-process at the tool's default widths, 20
+    steps, an eval every 10: the header names the card, three rows with the
+    JAX tool's keys, every metric finite and inside [0, 1] (the scene loss
+    NaN at step 0 only, as in JAX), then ``done``; the CC kernel's
+    launches, counted from 0, are returned."""
+    path = os.path.join(root, f"{family}.jsonl")
+    _reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        module.main(["--steps", "20", "--eval-every", "10", "--out", path])
+    seconds = time.perf_counter() - t0
+    launches = _launches()["masked_min_sweep"]
+    with open(path) as f:
+        head, *body = f.read().splitlines()
+    rows = [json.loads(line) for line in body]
+    check(head.startswith(f"# {smi}; python -m {module.__name__} "),
+          f"convergence {family}: header {head!r}")
+    check(out.getvalue().splitlines() == body + ["done"],
+          f"convergence {family}: stdout {out.getvalue()!r}")
+    check([r["step"] for r in rows] == [0, 10, 20] and all(
+        tuple(r) == CONVERGENCE_ROWS[family] for r in rows), f"convergence {family}: {rows}")
+    for r in rows:
+        for k, v in r.items():
+            if k == "loss" and r["step"] == 0:
+                check(np.isnan(v), f"convergence {family}: loss {v} at step 0")
+            elif k == "loss":
+                check(np.isfinite(v) and v > 0, f"convergence {family}: {r}")
+            elif k not in ("step", "t_min"):
+                check(np.isfinite(v) and 0.0 <= v <= 1.0, f"convergence {family}: {r}")
+        print(f"[convergence] {family}: {json.dumps(r)}")
+    check(launches > 0, f"masked_min_sweep was not launched by the {family} convergence run")
+    print(f"[convergence] {family}: 20 steps and 3 evals in {seconds:.1f} s, "
+          f"masked_min_sweep {launches} launches ({smi})")
+    return launches
+
+
+def _micro_bench_mask(card_name: str, smi: str) -> dict:
+    """The sweep on the micro-bench's ``graph`` stage's item-0 mask (N=8192,
+    the bench workload's seeded weights), card against the plain version
+    exactly, both timed."""
+    cfg = bench_config()
+    x = micro_bench.inputs(cfg, torch.device("cuda"))
+    nbr = micro_bench.graph_mask(cfg, x, 0)
+    n = nbr.shape[0]
+    labels = torch.arange(n, dtype=torch.int32, device="cuda")
+    check(torch.equal(cc.masked_min_sweep(nbr, labels), cc.masked_min_sweep_plain(nbr, labels)),
+          "sweep on the micro-bench's graph mask")
+    ms = time_graph(lambda: cc.masked_min_sweep(nbr, labels), 100)
+    plain_ms = time_graph(lambda: cc.masked_min_sweep_plain(nbr, labels), 10)
+    bound_ms = (n * n + 8 * n) / hbm_rate(card_name) * 1e3
+    print(f"[kernel] masked_min_sweep on the micro-bench's graph-stage N={n} mask "
+          f"({int(nbr.sum())} edges): {ms * 1e3:.2f} us/sweep, plain {plain_ms * 1e3:.2f} us, "
+          f"bound {bound_ms * 1e3:.2f} us, {bound_ms / ms:.1%} of the bound ({smi})")
+    return {"n": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+
+def phase_micro_and_convergence(card_name: str, smi: str) -> tuple[dict, dict]:
+    """Phase 26: the per-stage timer (``gcanet_tpu_torch.micro_bench``) at
+    ``bench_config()`` with every stage and ``edgebwd``, then 20 steps of
+    each convergence run at its default widths, each with the CC kernel's
+    launches counted from 0; the sweep on the ``graph`` stage's mask.
+    Returns the launches by path and the mask's times."""
+    torch.backends.cuda.matmul.allow_tf32 = False          # torch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    launches = {"micro_bench": _micro_bench_run(smi)}
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as root:
+        launches["convergence abc"] = _convergence_run("abc", convergence_run, root, smi)
+        launches["convergence scene"] = _convergence_run("scene", scene_convergence_run,
+                                                         root, smi)
+    return launches, _micro_bench_mask(card_name, smi)
+
+
 def run_phase(number: int, fn, *args):
     """``fn(*args)``, its host-clock seconds printed."""
     t0 = time.perf_counter()
@@ -3637,13 +3755,14 @@ def main() -> int:
     dp_launches, dp_mask = run_phase(23, phase_data_parallel, card_name, smi)
     seq_launches = run_phase(24, phase_sequence_parallel, smi, trained)
     serve_bench_launches, serve_bench_mask = run_phase(25, phase_serve_bench, card_name, smi)
+    micro_launches, micro_mask = run_phase(26, phase_micro_and_convergence, card_name, smi)
     row = kernel_rows[0]
     scene_train_mask = scene_train.pop("mask")
     row["launches_by_path"] = {"serve": row["launches"], "train": train_launches,
                                **cli_launches, "scene_serve": scene["launches"], **scene_train,
                                **{f"bench {k}": v for k, v in bench_res["launches"].items()},
                                **extras, **variants, **geometry, **dp_launches,
-                               **seq_launches, **serve_bench_launches}
+                               **seq_launches, **serve_bench_launches, **micro_launches}
     row["launches"] = sum(row["launches_by_path"].values())
     row["scene_mask"] = {k: scene[k] for k in ("n", "ms", "plain_ms", "bound_ms")}
     row["scene_train_mask"] = scene_train_mask
@@ -3651,6 +3770,7 @@ def main() -> int:
     row["simple_clusters_mask"] = simple_mask
     row["data_parallel_mask"] = dp_mask
     row["serve_bench_mask"] = serve_bench_mask
+    row["micro_bench_mask"] = micro_mask
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

@@ -2,11 +2,13 @@
 
 PyTorch returns before the card has finished, so a timing waits for the
 device of the tensors it measures: CUDA events on the card, the host clock
-on the CPU (where every op has finished when it returns).
+on the CPU (where every op has finished when it returns).  A timing is
+written down with what it ran on (``device_line``).
 """
 
 from __future__ import annotations
 
+import subprocess
 import time
 
 import torch
@@ -60,3 +62,19 @@ def time_fn(fn, *args, iters: int = 10, warmup: int = 2) -> float:
     for _ in range(iters):
         r = fn(*args)
     return (time.perf_counter() - t0) / iters
+
+
+def device_line(device: torch.device | str) -> str:
+    """What ``device`` is, for a timing's record: for a card the
+    ``name, power.limit`` that ``nvidia-smi`` prints for it (the torch name
+    and the error where ``nvidia-smi`` fails), else the device type."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device.type
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    try:
+        return subprocess.run(["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=60, check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"{torch.cuda.get_device_name(index)}, power limit not read ({e})"

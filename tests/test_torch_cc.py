@@ -10,7 +10,6 @@ import numpy as np
 import pytest
 import torch
 
-from gcanet_tpu.ops import cc_pallas
 from gcanet_tpu.ops.grouping import connected_components as jax_cc
 from gcanet_tpu_torch.ops import cc
 from tests.torch_once import release_memory  # noqa: F401 (autouse)
@@ -69,6 +68,10 @@ def test_cc_chain_worst_case():
 
 @pytest.mark.parametrize("n,p", [(256, 0.01), (300, 0.05), (257, 0.0)])
 def test_plain_sweep_matches_pallas_interpret(n, p):
+    # imported here: Pallas is slow to import, and only the xdist worker
+    # that runs these cases need pay for it
+    from gcanet_tpu.ops import cc_pallas
+
     # the Pallas kernel takes a 256-multiple; compare on the valid block
     a = _random_graph(n, p, n)
     n_pad = -(-n // 256) * 256

@@ -51,7 +51,7 @@ from gcanet_tpu_torch.train import instances as tinst
 from gcanet_tpu_torch.train import step as tstep
 from gcanet_tpu_torch.train.trainer import Trainer
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
-from tests.torch_once import once, release_memory  # noqa: F401 (autouse)
+from tests.torch_once import jit_init, once, release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -94,8 +94,8 @@ def _jax_run(root):
     cfg = _jcfg(root)
     with pytest.MonkeyPatch.context() as mp:
         real_init = jstep.init_state
-        mp.setattr(jstep, "init_state", lambda c, m, tx, rng: jax.jit(
-            lambda r: real_init(c, m, tx, r))(rng))
+        mp.setattr(jstep, "init_state", lambda c, m, tx, rng: jit_init(
+            lambda r: real_init(c, m, tx, r), rng))
         _fp32_head(mp)
         trainer = JTrainer(cfg)
         params = jax.tree.map(np.array, trainer.state.params)

@@ -39,6 +39,8 @@ assert {"gcanet_tpu_torch.parallel", "gcanet_tpu_torch.parallel.dist",
         "gcanet_tpu_torch.utils.reference_ckpt"} <= set(names)
 assert {"gcanet_tpu_torch.serve_bench", "gcanet_tpu_torch.ops.voxelize",
         "gcanet_tpu_torch.data.native"} <= set(names)
+assert {"gcanet_tpu_torch.micro_bench", "gcanet_tpu_torch.convergence_run",
+        "gcanet_tpu_torch.scene_convergence_run"} <= set(names)
 for name in names:
     importlib.import_module(name)
 from gcanet_tpu_torch.data.native import voxelize_idx

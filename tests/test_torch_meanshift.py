@@ -37,7 +37,7 @@ from gcanet_tpu_torch.models.offset import keypoint_permutation
 from gcanet_tpu_torch.ops.mathutil import safe_norm
 from gcanet_tpu_torch.serve import Predictor
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
-from tests.torch_once import once, release_memory  # noqa: F401 (autouse)
+from tests.torch_once import jit_init, once, release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -113,8 +113,8 @@ HEAD = dict(grid_size=8, max_proposals=24)
 
 def _jax_init(model):
     z = jnp.zeros((1, N, 3))
-    v = jax.jit(lambda r: model.init({"params": r}, z, z, train=True, rng=r))(
-        jax.random.PRNGKey(0))
+    v = jit_init(lambda r: model.init({"params": r}, z, z, train=True, rng=r),
+                 jax.random.PRNGKey(0))
     return jax.tree.map(np.array, (v["params"], v["batch_stats"]))
 
 

@@ -28,7 +28,7 @@ from gcanet_tpu_torch.config import Config, InstanceHeadConfig
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
 from gcanet_tpu_torch.ops import knn as tknn
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
-from tests.torch_once import once, release_memory  # noqa: F401 (autouse)
+from tests.torch_once import jit_init, once, release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -56,8 +56,8 @@ def perturb(tree, rng):
 
 def _jax_init(jmodel):
     z = jnp.zeros((1, N, 3))
-    v = jax.jit(lambda r: jmodel.init({"params": r}, z, z, train=True, rng=r))(
-        jax.random.PRNGKey(0))
+    v = jit_init(lambda r: jmodel.init({"params": r}, z, z, train=True, rng=r),
+                 jax.random.PRNGKey(0))
     return jax.tree.map(np.asarray, (v["params"], v["batch_stats"]))
 
 

@@ -208,6 +208,13 @@ def _scene_trainer_cfg(log_dir, **kw):
 
 @pytest.fixture(scope="module")
 def inputs(tmp_path_factory):
+    """The weights, batches and clouds of the tests, built once per session
+    (``tests/torch_once.py``); ``root`` is the builder's directory, under
+    which each reference and the ranks write to a directory of their own."""
+    return once(tmp_path_factory, "parallel_inputs", lambda: _inputs(tmp_path_factory))
+
+
+def _inputs(tmp_path_factory):
     root = tmp_path_factory.mktemp("dp")
     key = jax.random.PRNGKey(3)
     r1 = np.array(jax.random.uniform(jax.random.fold_in(key, 0), (2, 3)))

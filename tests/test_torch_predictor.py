@@ -37,7 +37,7 @@ from gcanet_tpu_torch.config import Config, GroupingConfig, InstanceHeadConfig
 from gcanet_tpu_torch.data.synthetic import synth_clouds
 from gcanet_tpu_torch.serve import Predictor
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
-from tests.torch_once import once, release_memory  # noqa: F401 (autouse)
+from tests.torch_once import jit_init, once, release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -65,8 +65,8 @@ def _jax_reference():
     """The JAX weights (its init, pushed) and ``forward_fast`` on the clouds."""
     model = JPrimitiveNet(_jax_cfg())
     z = jnp.zeros((1, N, 3))
-    v = jax.jit(lambda r: model.init({"params": r}, z, z, train=True, rng=r))(
-        jax.random.PRNGKey(0))
+    v = jit_init(lambda r: model.init({"params": r}, z, z, train=True, rng=r),
+                 jax.random.PRNGKey(0))
     params = jax.tree.map(np.array, v["params"])
     stats = jax.tree.map(np.array, v["batch_stats"])
     params["OffsetPredModule_0"]["Dense_0"]["kernel"] *= 0.05

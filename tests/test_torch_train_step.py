@@ -64,7 +64,7 @@ from gcanet_tpu_torch.serve import Predictor
 from gcanet_tpu_torch.train import step as tstep
 from gcanet_tpu_torch.train.trainer import Trainer
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
-from tests.torch_once import once, release_memory  # noqa: F401 (autouse)
+from tests.torch_once import jit_init, once, release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -106,8 +106,8 @@ def perturb(tree, rng):
 
 def _init_weights(jcfg):
     z = jnp.zeros((1, N, 3))
-    v = jax.jit(lambda r: jpn.PrimitiveNet(jcfg).init({"params": r}, z, z, train=True,
-                                                      rng=r))(jax.random.PRNGKey(0))
+    v = jit_init(lambda r: jpn.PrimitiveNet(jcfg).init({"params": r}, z, z, train=True,
+                                                       rng=r), jax.random.PRNGKey(0))
     return jax.tree.map(np.array, (v["params"], v["batch_stats"]))
 
 

@@ -21,7 +21,7 @@ from gcanet_tpu.utils import import_torch
 from gcanet_tpu_torch.config import Config
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
 from gcanet_tpu_torch.utils import from_jax, reference_ckpt
-from tests.torch_once import release_memory  # noqa: F401 (autouse)
+from tests.torch_once import once, release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -30,10 +30,15 @@ SMALL = dict(num_points=128, nn_nb=8, nn_nb_inner=4, knn_impl="xla")
 
 
 @pytest.fixture(scope="module")
-def jax_tree():
+def jax_tree(tmp_path_factory):
     """The JAX flagship's trees (shapes by ``jax.eval_shape``, nothing
     compiled) filled from a numpy seed: every check here is structural or
-    bit for bit, so any values do."""
+    bit for bit, so any values do.  Built once per session
+    (``tests/torch_once.py``)."""
+    return once(tmp_path_factory, "weights_jax_tree", _jax_tree)
+
+
+def _jax_tree():
     z = jnp.zeros((1, 128, 3))
     shapes = jax.eval_shape(lambda r: JPrimitiveNet(JConfig(**SMALL)).init(
         {"params": r}, z, z, train=True, rng=r), jax.random.PRNGKey(1))

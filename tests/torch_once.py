@@ -1,6 +1,7 @@
 """Session helpers of the port's tests: a costly reference built once per
 pytest session however many xdist workers run the tests that use it
-(``once``), and memory handed back after each module (``release_memory``).
+(``once``), and memory handed back after each module (``release_memory``);
+JAX's random initialisations compiled lean (``jit_init``).
 
 Under ``--dist load`` the tests of one module land on several workers, and
 each worker builds the module's fixtures again.  ``once`` keeps the first
@@ -32,6 +33,21 @@ import sys
 
 import pytest
 from filelock import FileLock
+
+
+def jit_init(fn, *args):
+    """``jax.jit(fn)(*args)`` for a JAX random initialisation (a flax
+    ``init``), compiled at XLA's LLVM optimisation level 1 instead of the
+    default 2.  Such a program is mostly unrolled threefry and ``erf_inv``,
+    whose LLVM optimisation takes most of its compile time: at level 1 it
+    compiles in a fraction of the CPU time and gives the same values bit
+    for bit, as it did for each init of the port's tests (``init`` and
+    ``init_state``: the train step, modules, predictor, meanshift and eval
+    tests).  Level 0 does not: its values differ."""
+    import jax
+
+    lowered = jax.jit(fn).lower(*args)
+    return lowered.compile(compiler_options={"xla_backend_optimization_level": 1})(*args)
 
 
 def once(tmp_path_factory, name: str, build):
