@@ -161,7 +161,10 @@ Phases (any failure ends the run with a non-zero exit):
      ``Predictor``'s seeded weights); the voxelize parity ops
      (``ops/voxelize.py``, ``data/native.py``) card against CPU exactly on
      M=65536 coordinates.
- 26. the per-stage timer and the convergence runs in-process:
+ 26. the per-stage timer and the convergence runs in-process: first a
+     line with each family's largest ``|w| * sqrt(fan_in)`` over the
+     convergence runs' random start (seed 0), each at most flax's
+     truncated lecun-normal cut 2 / 0.8796...; then
      ``gcanet_tpu_torch.micro_bench.main`` at the bench workload (B=10,
      N=8192) with every default stage and ``edgebwd``, each line of
      ``tools/micro_bench.py`` once, in its order, finite and positive;
@@ -208,6 +211,7 @@ from gcanet_tpu_torch.data import native
 from gcanet_tpu_torch.data.synthetic import synth_batch, synth_clouds, synth_scene_batch
 from gcanet_tpu_torch.geometry import affinity, fitting, spline
 from gcanet_tpu_torch.models import pointnet2 as p2_models
+from gcanet_tpu_torch.models.layers import TRUNC_STD, init_lecun_normal_, lecun_fan_in
 from gcanet_tpu_torch.models.offset_dual import OffsetPredModuleDual
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
 from gcanet_tpu_torch.models.query_decoder import QueryDecoder
@@ -336,15 +340,19 @@ def hbm_rate(name: str) -> float:
 def push_weights(model: torch.nn.Module) -> None:
     """Random weights leave everything after grouping idle; push them so
     proposals pass the instance thresholds: small live offsets (the offset
-    module's, or ``ablation``'s MLP's), +10 on class 0's instance-class bias
-    and on the mask MLP's last bias.  In mode 3 the normal head's output
-    bias is zeroed and its kernel scaled by 5, so its normals vary from
-    point to point (else the normal-angle features of a neighbourhood
-    nearly tie under the max over k)."""
+    module's, or ``ablation``'s MLP's), +3 on type 1's bias (most points of
+    one type, so a proposal reaches ``min_npoint``: without it the random
+    types decide, and under flax's truncated draw phase 4's N=2048 cloud
+    kept no instance), +10 on class 0's
+    instance-class bias and on the mask MLP's last bias.  In mode 3 the
+    normal head's output bias is zeroed and its kernel scaled by 5, so its
+    normals vary from point to point (else the normal-angle features of a
+    neighbourhood nearly tie under the max over k)."""
     with torch.no_grad():
         offset = (model.offset_linear[2] if model.cfg.ablation
                   else model.offset_pred_block.mlp_offset)
         offset.weight.mul_(0.05)
+        model.mlp_prim_prob2.bias[1] += 3.0
         model.cls_linear.bias[0] += 10.0
         model.mask_linear[2].bias += 10.0
         if model.cfg.mode == 3:
@@ -3693,14 +3701,40 @@ def _micro_bench_mask(card_name: str, smi: str) -> dict:
     return {"n": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
 
 
+def _largest_drawn_weight(model: torch.nn.Module) -> float:
+    """The largest ``|w| * sqrt(fan_in)`` over the weights that
+    ``init_lecun_normal_`` draws in ``model``."""
+    return max(float(m.weight.detach().abs().max()) * fan_in ** 0.5
+               for m in model.modules() if (fan_in := lecun_fan_in(m)) is not None)
+
+
+def _check_draws() -> None:
+    """Each convergence run's random start as the tool draws it (its
+    default flags, seed 0): the largest ``|w| * sqrt(fan_in)`` of each
+    family, at most flax's truncated lecun-normal cut, 2 / TRUNC_STD."""
+    flagship = PrimitiveNet(convergence_run.make_config(convergence_run.parser().parse_args([])),
+                            generator=torch.Generator().manual_seed(0))
+    args = scene_convergence_run.parser().parse_args([])
+    scene = SoftGroupNet(scene_convergence_run.make_config(args), scene_grid=args.grid)
+    init_lecun_normal_(scene, torch.Generator().manual_seed(0))
+    bound = 2 / TRUNC_STD
+    largest = {"flagship": _largest_drawn_weight(flagship), "scene": _largest_drawn_weight(scene)}
+    print(f"[draw] largest |w|*sqrt(fan_in): flagship {largest['flagship']:.6f}, "
+          f"scene {largest['scene']:.6f}; flax's cut {bound:.6f}")
+    for family, value in largest.items():
+        check(value <= bound + 1e-6, f"{family} draws |w|*sqrt(fan_in) = {value} > {bound}")
+
+
 def phase_micro_and_convergence(card_name: str, smi: str) -> tuple[dict, dict]:
-    """Phase 26: the per-stage timer (``gcanet_tpu_torch.micro_bench``) at
-    ``bench_config()`` with every stage and ``edgebwd``, then 20 steps of
+    """Phase 26: each family's random start held to flax's truncated
+    lecun-normal cut; the per-stage timer (``gcanet_tpu_torch.micro_bench``)
+    at ``bench_config()`` with every stage and ``edgebwd``, then 20 steps of
     each convergence run at its default widths, each with the CC kernel's
     launches counted from 0; the sweep on the ``graph`` stage's mask.
     Returns the launches by path and the mask's times."""
     torch.backends.cuda.matmul.allow_tf32 = False          # torch's defaults
     torch.backends.cudnn.allow_tf32 = True
+    _check_draws()
     launches = {"micro_bench": _micro_bench_run(smi)}
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as root:
         launches["convergence abc"] = _convergence_run("abc", convergence_run, root, smi)

@@ -13,12 +13,19 @@ statistics in fp32 and returns its input's dtype.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Mapping
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+# The standard deviation of N(0, 1) cut to [-2, 2] (flax's
+# ``variance_scaling`` divides by it so the cut draw keeps its variance),
+# and erf at the cut (2 / sqrt 2): P(|x| < 2) for x ~ N(0, 1).
+TRUNC_STD = 0.87962566103423978
+_ERF_CUT = math.erf(2.0 / math.sqrt(2.0))
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -198,18 +205,37 @@ class MLP(nn.Sequential):
                          Dense(hidden_features, out_features))
 
 
+def lecun_fan_in(m: nn.Module) -> int | None:
+    """The fan-in by which ``init_lecun_normal_`` draws ``m.weight``:
+    ``in_features`` for a linear, ``in_channels * prod(kernel_size)`` for a
+    conv (flax's rule for a ``k... x in x out`` kernel); None for a module
+    it does not draw."""
+    if isinstance(m, nn.Linear):
+        return m.in_features
+    if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
+        return m.in_channels * int(torch.tensor(m.kernel_size).prod())
+    return None
+
+
 def init_lecun_normal_(module: nn.Module, generator: torch.Generator) -> None:
-    """Random weights from ``generator``: every linear/conv weight
-    N(0, 1/fan_in) (flax's lecun-normal scale), biases 0; norms keep their
-    identity initialisation."""
+    """Random weights from ``generator`` by flax's ``lecun_normal()``
+    (``variance_scaling(1.0, "fan_in", "truncated_normal")``): every
+    linear/conv weight from a normal cut at two of its own standard
+    deviations, ``std = fan_in**-0.5 / TRUNC_STD`` (the cut keeps the
+    variance at 1/fan_in and drops the tails; ``lecun_fan_in``); biases 0;
+    norms keep their identity initialisation.
+
+    Drawn as ``jax.random.truncated_normal`` draws: a uniform on
+    ``(erf(-2/sqrt 2), erf(2/sqrt 2))`` through ``sqrt(2) * erfinv``, clipped
+    to the cut: one pass, where ``nn.init.trunc_normal_`` draws the whole
+    tensor again for as long as any value falls outside the cut."""
     for m in module.modules():
-        if isinstance(m, nn.Linear):
-            fan_in = m.in_features
-        elif isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
-            fan_in = m.in_channels * int(torch.tensor(m.kernel_size).prod())
-        else:
+        fan_in = lecun_fan_in(m)
+        if fan_in is None:
             continue
+        std = fan_in ** -0.5 / TRUNC_STD
         with torch.no_grad():
-            m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
+            m.weight.uniform_(-_ERF_CUT, _ERF_CUT, generator=generator).erfinv_()
+            m.weight.mul_(math.sqrt(2.0) * std).clamp_(-2 * std, 2 * std)
             if m.bias is not None:
                 m.bias.zero_()

@@ -80,11 +80,14 @@ class _Layer(nn.Module):
 
 class Transformer(nn.Module):
     """transformer.py:78-91: ``depth`` x (pre-norm attention, pre-norm
-    feed-forward), each residual."""
+    feed-forward), each residual.  Weights drawn from ``generator``
+    (default: seeded with 0; a ``ViT`` passes its own)."""
 
-    def __init__(self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int):
+    def __init__(self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.layers = nn.ModuleList(_Layer(dim, heads, dim_head, mlp_dim) for _ in range(depth))
+        init_lecun_normal_(self, generator or torch.Generator().manual_seed(0))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for layer in self.layers:
@@ -103,13 +106,14 @@ class ViT(nn.Module):
         super().__init__()
         self.patch_size, self.pool = patch_size, pool
         n = (image_size // patch_size) ** 2
+        generator = generator or torch.Generator().manual_seed(0)
         self.to_patch_embedding = Dense(patch_size * patch_size * channels, dim)
         self.cls_token = nn.Parameter(torch.empty(1, 1, dim))
         self.pos_embedding = nn.Parameter(torch.empty(1, n + 1, dim))
-        self.transformer = Transformer(dim, depth, heads, dim_head, mlp_dim)
+        self.transformer = Transformer(dim, depth, heads, dim_head, mlp_dim, generator)
         self.mlp_head = nn.Sequential(layer_norm(dim), Dense(dim, num_classes))
-        generator = generator or torch.Generator().manual_seed(0)
-        init_lecun_normal_(self, generator)
+        for m in (self.to_patch_embedding, self.mlp_head):      # the transformer drew its own
+            init_lecun_normal_(m, generator)
         with torch.no_grad():
             self.cls_token.normal_(generator=generator)
             self.pos_embedding.normal_(generator=generator)

@@ -24,12 +24,17 @@ from gcanet_tpu.models.soft_projection import SoftProjection as JSoftProjection
 from gcanet_tpu.models.splinenet import DGCNNControlPoints as JSpline
 from gcanet_tpu.models.transformer import ViT as JViT
 from gcanet_tpu.models.transformer import Transformer as JTransformer
+from gcanet_tpu_torch.config import Config
 from gcanet_tpu_torch.losses import mask2former as tm2f
+from gcanet_tpu_torch.models.pointnet2 import (PointnetFPModule, PointnetSAModule,
+                                               PointnetSAModuleMSG)
 from gcanet_tpu_torch.models.query_decoder import QueryDecoder
 from gcanet_tpu_torch.models.soft_projection import SoftProjection
 from gcanet_tpu_torch.models.splinenet import DGCNNControlPoints
+from gcanet_tpu_torch.models.sppnet import PrimitiveNetSPP
 from gcanet_tpu_torch.models.transformer import ViT, Transformer
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
+from tests import torch_init_law as law
 from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
@@ -92,6 +97,7 @@ def test_splinenet_matches_jax(mode):
     jmod = JSpline(num_control_points=4, k=8, mode=mode)
     params, stats = _init(jmod, pts)
     tmod = DGCNNControlPoints(num_control_points=4, k=8, mode=mode)
+    law.check_against_jax(tmod, params, stats, family="splinenet", values=False)
     tmod.load_state_dict(state_dict_from_jax(params, stats, family="splinenet"))
 
     @jax.jit
@@ -129,6 +135,8 @@ def test_soft_projection_matches_jax():
     params, _ = _init(jmod, cloud, query)
     params["temperature"] = np.float32(0.3)
     tmod = SoftProjection(group_size=6, initial_temperature=0.3)
+    law.check_against_jax(tmod, params, None, family="soft_projection", values=False)
+    assert tmod.temperature.item() == params["temperature"]       # flax's constant
     tmod.load_state_dict(state_dict_from_jax(params, None, family="soft_projection"))
     actions = ("project", "propagate", "project_and_propagate")
 
@@ -170,6 +178,7 @@ def test_vit_matches_jax(pool):
     jmod = JViT(**kw)
     params, _ = _init(jmod, img)
     tmod = ViT(**kw)
+    law.check_against_jax(tmod, params, None, family="vit", values=False)
     tmod.load_state_dict(state_dict_from_jax(params, None, family="vit"))
     cot = np.random.default_rng(6).standard_normal((2, 5)).astype(np.float32)
 
@@ -189,7 +198,35 @@ def test_vit_matches_jax(pool):
 def test_transformer_mask_matches_jax():
     """The pre-norm ``Transformer`` with a key-padding mask: a masked point
     attends to nothing but gets the blocked logits' uniform average, as in
-    the JAX package."""
+    the JAX package.
+
+    Also the draw of every library model, built only at default widths,
+    against flax's truncated lecun-normal (``tests/torch_init_law.py``;
+    each model against its JAX tree where the tests here, in
+    ``test_torch_pointnet2.py`` and in ``test_torch_variants.py`` hold that
+    tree): SplineNet, SPP-Net, the query decoder (with its positional
+    table), a ViT and a transformer at ViT-Ti/16's widths and depth 1, and
+    PointNet++'s MSG classification SA modules with an FP module of [256,
+    256] over 1280 channels by their bound and pooled law; the
+    ``normal(1.0)`` tables (query, positional table, class token, position
+    embedding: 89,216 values) as an untruncated N(0, 1)."""
+    vit_ti = dict(image_size=224, patch_size=16, num_classes=1000, dim=192, depth=1,
+                  heads=3, mlp_dim=768)
+    decoder, vit = QueryDecoder(use_pe=True), ViT(**vit_ti)
+    law.check_law([
+        DGCNNControlPoints(), PrimitiveNetSPP(Config()), decoder, vit,
+        Transformer(192, 1, 3, 64, 768),
+        PointnetSAModuleMSG(512, [0.1, 0.2, 0.4], [16, 32, 128],
+                            [[32, 32, 64], [64, 64, 128], [64, 96, 128]]),
+        PointnetSAModuleMSG(128, [0.2, 0.4, 0.8], [32, 64, 128],
+                            [[64, 64, 128], [128, 128, 256], [128, 128, 256]], in_channels=320),
+        PointnetSAModule.make([256, 512, 1024], in_channels=640),
+        PointnetFPModule([256, 256], 1280)])
+    normal = np.concatenate([p.detach().numpy().ravel() for p in (
+        decoder.query, decoder.pe, vit.cls_token, vit.pos_embedding)])
+    assert normal.size == 89_216
+    law.check_normal_law(normal)
+
     x = np.random.default_rng(7).standard_normal((2, 10, 16)).astype(np.float32)
     mask = np.ones((2, 10), bool)
     mask[0, 7:] = False
@@ -197,6 +234,7 @@ def test_transformer_mask_matches_jax():
     jmod = JTransformer(dim=16, depth=2, heads=2, dim_head=8, mlp_dim=32)
     params, _ = _init(jmod, x, mask)
     tmod = Transformer(dim=16, depth=2, heads=2, dim_head=8, mlp_dim=32)
+    law.check_against_jax(tmod, params, None, family="transformer", values=False)
     tmod.load_state_dict(state_dict_from_jax(params, None, family="transformer"))
     want = jax.jit(lambda p, a, m: jmod.apply({"params": p}, a, m))(params, x, mask)
     got = tmod(torch.from_numpy(x), torch.from_numpy(mask))
@@ -214,6 +252,7 @@ def decoder():
     jmod = JQueryDecoder(**kw)
     params, _ = _init(jmod, x)
     tmod = QueryDecoder(**kw)
+    law.check_against_jax(tmod, params, None, family="query_decoder", values=False)
     tmod.load_state_dict(state_dict_from_jax(params, None, family="query_decoder"))
     want = jax.tree.map(np.asarray, jax.jit(lambda p, a: jmod.apply({"params": p}, a))(params, x))
     return x, params, want, tmod, tmod(torch.from_numpy(x))
@@ -271,3 +310,4 @@ def test_criterion_matches_jax(decoder):
             tfn(*map(torch.from_numpy, (logits, tgt, valid))).numpy(),
             np.asarray(jfn(*map(jnp.asarray, (logits, tgt, valid)))), err_msg=jfn.__name__,
             **LOSS)
+

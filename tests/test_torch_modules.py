@@ -28,6 +28,7 @@ from gcanet_tpu_torch.config import Config, InstanceHeadConfig
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
 from gcanet_tpu_torch.ops import knn as tknn
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
+from tests import torch_init_law as law
 from tests.torch_once import jit_init, once, release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
@@ -63,14 +64,21 @@ def _jax_init(jmodel):
 
 @pytest.fixture(scope="module")
 def models(tmp_path_factory):
+    """The JAX model and the port's, on the same perturbed weights.  First
+    the port's own draw is held to flax's truncated lecun-normal
+    (``tests/torch_init_law.py``): the default flagship (4.4 million
+    weights, built only) by its bound and law, the small one against the
+    JAX ``PrimitiveNet.init`` values."""
     jcfg = JConfig(**SMALL, instance_head=JIHConfig(grid_size=G, max_proposals=P))
     jmodel = JPrimitiveNet(jcfg)
     init_params, init_stats = once(tmp_path_factory, "modules_init", lambda: _jax_init(jmodel))
+    tmodel = PrimitiveNet(Config(**SMALL, instance_head=InstanceHeadConfig(
+        grid_size=G, max_proposals=P)))
+    law.check_law([PrimitiveNet(Config())])
+    law.check_against_jax(tmodel, init_params, init_stats, family="flagship", values=True)
     rng = np.random.default_rng(0)
     params = perturb(init_params, rng)
     stats = perturb(init_stats, rng)
-    tmodel = PrimitiveNet(Config(**SMALL, instance_head=InstanceHeadConfig(
-        grid_size=G, max_proposals=P)))
     tmodel.load_state_dict(state_dict_from_jax(params, stats))
     return jmodel, params, stats, tmodel.eval()
 

@@ -20,6 +20,7 @@ from gcanet_tpu.ops import pointnet2 as jp2
 from gcanet_tpu_torch.models import pointnet2 as tmods
 from gcanet_tpu_torch.ops import pointnet2 as tp2
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
+from tests import torch_init_law as law
 from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
@@ -132,10 +133,12 @@ def _weights(jmod, args, seed):
 
 def _run_both(jmod, tmod, family, args, train):
     """``jmod`` and ``tmod`` on the same ``args`` (numpy; None passes
-    through) from the same weights; returns the outputs and, in training
+    through) from the same weights (``tmod``'s own draw first held to the
+    JAX tree by ``tests/torch_init_law.py``); returns the outputs and, in training
     mode, both sides' new running statistics as port state_dicts."""
     jargs = [None if a is None else jnp.asarray(a) for a in args]
     params, stats = _weights(jmod, jargs, 7)
+    law.check_against_jax(tmod, params, stats, family=family, values=False)
     tmod.load_state_dict(state_dict_from_jax(params, stats, family=family))
     tmod.train(train)
     want, mut = jax.jit(lambda p, s, a: jmod.apply({"params": p, "batch_stats": s}, *a,

@@ -43,6 +43,7 @@ from gcanet_tpu_torch.models import registry
 from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
 from gcanet_tpu_torch.serve import ScenePredictor
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
+from tests import torch_init_law as law
 from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
@@ -138,6 +139,7 @@ def test_soft_group_net_matches_jax(case):
     _check_score_margin(np.asarray(want.semantic_scores), cfg.grouping.score_thr)
 
     model = SoftGroupNet(cfg, scene_grid=8, channels=8)
+    law.check_against_jax(model, params, stats, family="scene", values=False)
     model.load_state_dict(state_dict_from_jax(params, stats, family="scene"))
     with torch.inference_mode():
         got = model.eval()(torch.from_numpy(xyz), torch.from_numpy(feats), x4_split=c["x4"])
@@ -172,6 +174,7 @@ def test_semantic_only_matches_jax():
 def test_registry_and_scene_knobs():
     tiny = Config(num_points=64, model_dict="softgroup.model.softgroup")
     model = registry.build_model(tiny)
+    law.check_law([model])            # flax's truncated lecun-normal (tests/torch_init_law.py)
     assert isinstance(model, SoftGroupNet) and model.compute_bf16 and model.semantic_only is False
     assert {"input_conv", "unet", "output_layer", "semantic_linear", "offset_linear",
             "instance_head"} == {name for name, _ in model.named_children()}

@@ -63,6 +63,7 @@ from gcanet_tpu_torch.train_new import main
 from gcanet_tpu_torch.utils import from_jax
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
 from test_torch_knobs import _jax_train_step, _port_grads
+from tests import torch_init_law as law
 from tests.torch_once import once, release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
@@ -419,6 +420,7 @@ def test_sppnet_head_loss_step_matches_jax():
     want, jloss, jgrads, jnew = jax.tree.map(np.asarray,
                                              step(params, {k: batch[k] for k in keys}))
     model = PrimitiveNetSPP(tcfg, num_primitives=7)
+    law.check_against_jax(model, params, None, family="sppnet", values=False)
     model.load_state_dict(state_dict_from_jax(params, None, family="sppnet"))
     opt = tstep.make_optimizer(tcfg, model.parameters())
     tb = tstep.batch_to_device(batch, "cpu")

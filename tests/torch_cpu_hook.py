@@ -6,7 +6,8 @@ teardown), and its wall seconds.  Not loaded unless asked for:
     CPU_HOOK_OUT=/tmp/cpu.jsonl python -m pytest tests/test_torch_*.py \\
         -p tests.torch_cpu_hook [the port-only run's flags]
 
-writes one JSON line per test, ``{"id", "cpu", "wall"}``, to
+writes one JSON line per test, ``{"id", "cpu", "wall", "start"}`` (start on
+the host's clock, seconds since the epoch), to
 ``$CPU_HOOK_OUT.<xdist worker or main>``.  A module-scoped fixture counts
 in the first test of its module that a worker runs.
 """
@@ -36,4 +37,4 @@ def pytest_runtest_protocol(item, nextitem):
         worker = os.environ.get("PYTEST_XDIST_WORKER", "main")
         with open(f"{out}.{worker}", "a") as f:
             f.write(json.dumps({"id": item.nodeid, "cpu": _cpu() - cpu,
-                                "wall": time.time() - wall}) + "\n")
+                                "wall": time.time() - wall, "start": wall}) + "\n")
