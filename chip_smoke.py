@@ -211,7 +211,6 @@ from gcanet_tpu_torch.data import native
 from gcanet_tpu_torch.data.synthetic import synth_batch, synth_clouds, synth_scene_batch
 from gcanet_tpu_torch.geometry import affinity, fitting, spline
 from gcanet_tpu_torch.models import pointnet2 as p2_models
-from gcanet_tpu_torch.models.layers import TRUNC_STD, init_lecun_normal_, lecun_fan_in
 from gcanet_tpu_torch.models.offset_dual import OffsetPredModuleDual
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
 from gcanet_tpu_torch.models.query_decoder import QueryDecoder
@@ -236,7 +235,9 @@ from gcanet_tpu_torch.train import step as step_lib
 from gcanet_tpu_torch.train import trainer as trainer_mod
 from gcanet_tpu_torch.train.scene_trainer import SceneTrainer
 from gcanet_tpu_torch.train.trainer import Trainer
-from gcanet_tpu_torch.utils import from_jax, kernels, profiling, reference_ckpt, timing
+from gcanet_tpu_torch.utils import (from_jax, kernels, profiling, reference_ckpt, threefry,
+                                    timing)
+from gcanet_tpu_torch.utils.flax_init import TRUNC_STD
 from gcanet_tpu_torch.utils.transfer import fetch
 
 # memory rates of the cards this runs on (NVIDIA data sheets), bytes/s
@@ -1959,10 +1960,10 @@ def phase_bench(card_name: str, smi: str) -> dict:
         launches[label] = _bench_line(label, smi, **env)[1]
 
     cfg, model, optimizer, batch, step, _ = bench.build("abc", torch.device("cuda"))
-    generator = torch.Generator(device="cuda").manual_seed(1)
-    step(model, optimizer, batch, generator)                       # warm-up
+    shifts = [step_lib.grid_shift(threefry.key(1), i, "cuda") for i in range(3)]
+    step(model, optimizer, batch, r1=shifts[0])                    # warm-up
     _profile(f"2 bench steps (B={cfg.batch_size}, N={cfg.num_points}, forward + backward "
-             f"+ Adam)", lambda: [step(model, optimizer, batch, generator) for _ in range(2)])
+             f"+ Adam)", lambda: [step(model, optimizer, batch, r1=r1) for r1 in shifts[1:]])
     with torch.inference_mode():
         out = model.eval()(batch["gt_pc"][:1], batch["gt_normal"][:1])
     n = cfg.num_points
@@ -3611,6 +3612,17 @@ def phase_serve_bench(card_name: str, smi: str) -> tuple[dict, dict]:
 # phase 26: the short convergence runs' row keys
 CONVERGENCE_ROWS = {"abc": ("step", "miou", "type_miou", "t_min"),
                     "scene": ("step", "loss", "sem_miou", "acc", "ap50", "t_min")}
+# each convergence cell's JAX log, seed 0: its step-0 row evaluates the
+# JAX tool's start, which the port now draws with JAX's own stream, so the
+# port's step-0 row must equal it within STEP0_ATOL.  The scene cells' are
+# the JAX TPU logs.  The flagship's TPU log (production_convergence_v3.log)
+# predates later changes of the JAX model and ran approximate kNN, and the
+# current JAX tool's own step-0 row differs from it (a CPU run of the JAX
+# package), so the flagship is held to that row
+JAX_CONVERGENCE_LOGS = {"abc": "docs/torch_conv/conv_jax_cpu_step0.jsonl",
+                        "scene": "docs/conv_r5/scene_conv_soft_s0.jsonl",
+                        "scene grid 48": "docs/conv_r5/scene_conv_g48.jsonl"}
+STEP0_ATOL = 0.01
 
 
 def _micro_bench_run(smi: str) -> int:
@@ -3662,6 +3674,7 @@ def _convergence_run(family: str, module, root: str, smi: str) -> int:
     rows = [json.loads(line) for line in body]
     check(head.startswith(f"# {smi}; python -m {module.__name__} "),
           f"convergence {family}: header {head!r}")
+    _check_step0(family, rows[0])
     check(out.getvalue().splitlines() == body + ["done"],
           f"convergence {family}: stdout {out.getvalue()!r}")
     check([r["step"] for r in rows] == [0, 10, 20] and all(
@@ -3679,6 +3692,30 @@ def _convergence_run(family: str, module, root: str, smi: str) -> int:
     print(f"[convergence] {family}: 20 steps and 3 evals in {seconds:.1f} s, "
           f"masked_min_sweep {launches} launches ({smi})")
     return launches
+
+
+def _check_step0(cell: str, row: dict) -> None:
+    """The port's step-0 row of a convergence cell beside the JAX log's,
+    both printed; fails when a metric differs by more than STEP0_ATOL."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), JAX_CONVERGENCE_LOGS[cell])
+    with open(path) as f:
+        want = next(json.loads(line) for line in f if line.startswith("{"))
+    keys = [k for k in want if k not in ("step", "loss", "t_min")]
+    got = {k: row[k] for k in keys}
+    print(f"[step 0] {cell}: port {json.dumps(got)}, JAX log "
+          f"{json.dumps({k: want[k] for k in keys})} ({JAX_CONVERGENCE_LOGS[cell]})")
+    check(row["step"] == 0 and all(abs(got[k] - want[k]) <= STEP0_ATOL for k in keys),
+          f"convergence {cell}: step 0 {got} against the JAX log's {want}")
+
+
+def _scene_grid48_step0(root: str) -> None:
+    """The grid-48 scene cell's step-0 eval alone (``--steps 0``) against
+    its JAX log's."""
+    path = os.path.join(root, "scene_grid48.jsonl")
+    with contextlib.redirect_stdout(io.StringIO()):
+        scene_convergence_run.main(["--steps", "0", "--grid", "48", "--out", path])
+    with open(path) as f:
+        _check_step0("scene grid 48", json.loads(f.read().splitlines()[1]))
 
 
 def _micro_bench_mask(card_name: str, smi: str) -> dict:
@@ -3702,21 +3739,27 @@ def _micro_bench_mask(card_name: str, smi: str) -> dict:
 
 
 def _largest_drawn_weight(model: torch.nn.Module) -> float:
-    """The largest ``|w| * sqrt(fan_in)`` over the weights that
-    ``init_lecun_normal_`` draws in ``model``."""
-    return max(float(m.weight.detach().abs().max()) * fan_in ** 0.5
-               for m in model.modules() if (fan_in := lecun_fan_in(m)) is not None)
+    """The largest ``|w| * sqrt(fan_in)`` over the linear and conv weights
+    of ``model`` (flax's fan-in of a ``k... x in x out`` kernel)."""
+    def fan_in(m):              # a transposed conv's weight is [in, out, k...]
+        w = m.weight
+        return w.shape[0] * w[0, 0].numel() if isinstance(m, torch.nn.ConvTranspose3d) \
+            else w[0].numel()
+
+    return max(float(m.weight.detach().abs().max()) * fan_in(m) ** 0.5
+               for m in model.modules()
+               if isinstance(m, (torch.nn.Linear, torch.nn.Conv3d, torch.nn.ConvTranspose3d)))
 
 
 def _check_draws() -> None:
     """Each convergence run's random start as the tool draws it (its
-    default flags, seed 0): the largest ``|w| * sqrt(fan_in)`` of each
-    family, at most flax's truncated lecun-normal cut, 2 / TRUNC_STD."""
+    default flags, seed 0: flax's init from ``PRNGKey(0)``): the largest
+    ``|w| * sqrt(fan_in)`` of each family, at most flax's truncated
+    lecun-normal cut, 2 / TRUNC_STD."""
     flagship = PrimitiveNet(convergence_run.make_config(convergence_run.parser().parse_args([])),
-                            generator=torch.Generator().manual_seed(0))
+                            seed=0)
     args = scene_convergence_run.parser().parse_args([])
-    scene = SoftGroupNet(scene_convergence_run.make_config(args), scene_grid=args.grid)
-    init_lecun_normal_(scene, torch.Generator().manual_seed(0))
+    scene = SoftGroupNet(scene_convergence_run.make_config(args), scene_grid=args.grid, seed=0)
     bound = 2 / TRUNC_STD
     largest = {"flagship": _largest_drawn_weight(flagship), "scene": _largest_drawn_weight(scene)}
     print(f"[draw] largest |w|*sqrt(fan_in): flagship {largest['flagship']:.6f}, "
@@ -3730,7 +3773,9 @@ def phase_micro_and_convergence(card_name: str, smi: str) -> tuple[dict, dict]:
     lecun-normal cut; the per-stage timer (``gcanet_tpu_torch.micro_bench``)
     at ``bench_config()`` with every stage and ``edgebwd``, then 20 steps of
     each convergence run at its default widths, each with the CC kernel's
-    launches counted from 0; the sweep on the ``graph`` stage's mask.
+    launches counted from 0, and the grid-48 scene cell's step-0 eval: each
+    cell's step-0 row against its JAX log's; the sweep on the ``graph``
+    stage's mask.
     Returns the launches by path and the mask's times."""
     torch.backends.cuda.matmul.allow_tf32 = False          # torch's defaults
     torch.backends.cudnn.allow_tf32 = True
@@ -3740,6 +3785,7 @@ def phase_micro_and_convergence(card_name: str, smi: str) -> tuple[dict, dict]:
         launches["convergence abc"] = _convergence_run("abc", convergence_run, root, smi)
         launches["convergence scene"] = _convergence_run("scene", scene_convergence_run,
                                                          root, smi)
+        _scene_grid48_step0(root)
     return launches, _micro_bench_mask(card_name, smi)
 
 

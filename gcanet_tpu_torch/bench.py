@@ -47,6 +47,7 @@ from gcanet_tpu_torch.parallel.dist import (broadcast_module, data_parallel_worl
                                             pick_device)
 from gcanet_tpu_torch.train import scene_step
 from gcanet_tpu_torch.train import step as step_lib
+from gcanet_tpu_torch.utils import threefry
 
 REFERENCE_CLOUDS_PER_SEC = 5.0
 
@@ -55,7 +56,7 @@ def build(family: str, device: torch.device):
     """``(cfg, model, optimizer, batch, step, metric)`` of the bench workload:
     the model and Adam from the seed, one synthetic batch (seed 0; under
     ``GCA_BENCH_MESH`` this rank's chunk of it) on ``device``, and
-    ``step(model, optimizer, batch, generator)``."""
+    ``step(model, optimizer, batch, r1=...)``."""
     cfg = bench_config()
     world = data_parallel_world(cfg)
     env = os.environ
@@ -110,24 +111,26 @@ def _run(device: str | torch.device | None) -> dict:
     dev = pick_device(device, world, "the bench")
     family = os.environ.get("GCA_BENCH_FAMILY", "abc")
     cfg, model, optimizer, batch, step, metric = build(family, dev)
-    generator = torch.Generator(device=dev).manual_seed(1)
     n_iters = int(os.environ.get("GCA_BENCH_ITERS", "10"))
+    # step i's grid shift is the JAX bench's: its key PRNGKey(1) folded
+    # with the step (bench.py:122), every shift copied over before the clock
+    shifts = [step_lib.grid_shift(threefry.key(1), i, dev) for i in range(n_iters + 1)]
 
-    metrics = step(model, optimizer, batch, generator)           # warm-up
+    metrics = step(model, optimizer, batch, r1=shifts[0])           # warm-up
     float(metrics["total_loss"])
     if dev.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(n_iters):
-            metrics = step(model, optimizer, batch, generator)
+        for i in range(n_iters):
+            metrics = step(model, optimizer, batch, r1=shifts[i + 1])
         end.record()
         end.synchronize()
         seconds = start.elapsed_time(end) / 1e3
     else:
         t0 = time.perf_counter()
-        for _ in range(n_iters):
-            metrics = step(model, optimizer, batch, generator)
+        for i in range(n_iters):
+            metrics = step(model, optimizer, batch, r1=shifts[i + 1])
         seconds = time.perf_counter() - t0
     if not torch.isfinite(metrics["total_loss"]):
         raise RuntimeError(f"the bench's last total_loss is {float(metrics['total_loss'])}")

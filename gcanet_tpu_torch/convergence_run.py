@@ -20,11 +20,11 @@ defaults, ``Config``, data seeds and eval protocol are the JAX tool's:
   whatever ``--seed`` says, so runs share them; each goes through
   ``train/step.py::eval_step`` on the device and ``metrics.compute_miou`` /
   ``compute_type_miou_abc`` on the host.
-* The weights come from ``--seed`` (``init_lecun_normal_``), Adam at
-  ``Config.learning_rate`` with no decay.  The voxel grid shifts come from
-  one ``torch.Generator`` seeded with ``seed + 1``, where the JAX tool
-  passes the one key ``PRNGKey(seed + 1)`` to every step: the random
-  streams differ from JAX's, as every port trainer's do.
+* The weights are the JAX tool's for ``--seed`` (flax's init from
+  ``PRNGKey(seed)``, ``utils/flax_init.py``), Adam at
+  ``Config.learning_rate`` with no decay.  Step i's voxel grid shift is
+  the JAX step's, ``uniform(fold_in(PRNGKey(seed + 1), i), (2, 3))``
+  (``train/step.py::grid_shift``).
 
 The file starts with a ``#`` line naming the device (on a card,
 ``nvidia-smi``'s name and power limit) and the command, which
@@ -51,6 +51,7 @@ from gcanet_tpu_torch.parallel.dist import pick_device
 from gcanet_tpu_torch.train import metrics as M
 from gcanet_tpu_torch.train import step as step_lib
 from gcanet_tpu_torch.train.trainer import prefetch_to_device
+from gcanet_tpu_torch.utils import threefry
 from gcanet_tpu_torch.utils.timing import device_line
 from gcanet_tpu_torch.utils.transfer import fetch
 
@@ -150,7 +151,7 @@ def main(argv: list[str] | None = None) -> None:
     args = parser().parse_args(argv)
     dev = pick_device(args.device, 1, "the convergence run")
     cfg = make_config(args)
-    model = PrimitiveNet(cfg, generator=torch.Generator().manual_seed(args.seed)).to(dev)
+    model = PrimitiveNet(cfg, seed=args.seed).to(dev)
     optimizer = step_lib.make_optimizer(cfg, model.parameters())
     objects = eval_objects(cfg, args)
     objects_dev = [step_lib.batch_to_device(eb, dev) for eb in objects]
@@ -162,7 +163,7 @@ def main(argv: list[str] | None = None) -> None:
             results.append(fetch([merged, out.type_per_point]))
         return object_metrics(results, objects)
 
-    generator = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    shift_key = threefry.key(args.seed + 1)       # tools/convergence_run.py:118
     t0 = time.time()
     with open(args.out, "w") as log:
         log.write(header(dev, "gcanet_tpu_torch.convergence_run", argv))
@@ -175,7 +176,8 @@ def main(argv: list[str] | None = None) -> None:
                                 "type_miou": round(tmiou, 4),
                                 "t_min": round((time.time() - t0) / 60, 1)})
             if step < args.steps:
-                step_lib.train_step(model, optimizer, next(batches), generator)
+                step_lib.train_step(model, optimizer, next(batches),
+                                    r1=step_lib.grid_shift(shift_key, step, dev))
     print("done")
 
 

@@ -9,9 +9,15 @@ losses, step (the default: all ten, in this order); ``edgebwd`` is opt-in
 96}`` at C=64 and 128, and the argsort that builds the reverse index).  The
 workload is the JAX tool's: ``config.py::bench_config`` (the
 ``GCA_BENCH_*`` knobs; flagship B=10, N=8192), one synthetic batch (seed
-0), the model's weights from a seeded ``torch.Generator``, and the stage
-inputs (``points``, ``emb``, ``param``, ``cls_argmax``, ``shifted``,
-``pid``) taken from one training-mode forward.
+0), the JAX tool's weights and grid shifts (its one key ``PRNGKey(0)``:
+flax's init of the model, the encoder and the instance head, each the
+root of its own tree; the forward's shift ``uniform(key, (2, 3))``, the
+step's with the key folded with step 0), and the stage inputs
+(``points``, ``emb``, ``param``, ``cls_argmax``, ``shifted``, ``pid``)
+taken from one training-mode forward.  The random stage inputs (the
+feature-64 kNN's points, the edge gathers' inputs and cotangents) are
+``torch.randn`` draws: up to half a billion values, which the host's copy
+of JAX's stream would take minutes to make.
 
 Each stage times the port's counterpart of what the JAX stage times, with
 ``utils/timing.py::time_fn`` (CUDA events on a card, the host clock on the
@@ -41,13 +47,15 @@ from gcanet_tpu_torch.config import Config, bench_config
 from gcanet_tpu_torch.data.synthetic import synth_batch
 from gcanet_tpu_torch.models.dgcnn import DGCNNEncoderGn
 from gcanet_tpu_torch.models.instance_head import InstanceHead
-from gcanet_tpu_torch.models.layers import init_lecun_normal_
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
 from gcanet_tpu_torch.ops import grouping as grouping_ops
 from gcanet_tpu_torch.ops import knn as knn_ops
 from gcanet_tpu_torch.ops import voxelize as vox_ops
 from gcanet_tpu_torch.parallel.dist import pick_device
 from gcanet_tpu_torch.train import step as step_lib
+from gcanet_tpu_torch.utils import threefry
+from gcanet_tpu_torch.utils.flax_init import init_from_seed
+from gcanet_tpu_torch.utils.from_jax import build_encoder_rules, build_instance_head_rules
 from gcanet_tpu_torch.utils.timing import device_line, time_fn
 
 STAGES = ("knn", "encoder", "model_fwd", "graph", "cc", "grouping", "voxelize", "head",
@@ -63,27 +71,28 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _seeded(module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
-    init_lecun_normal_(module, torch.Generator().manual_seed(0))
+def _seeded(module: torch.nn.Module, rules, device: torch.device) -> torch.nn.Module:
+    init_from_seed(module, rules, 0)
     return module.to(device)
 
 
 def inputs(cfg: Config, dev: torch.device) -> SimpleNamespace:
     """The workload on ``dev``: the seeded model and Adam, the batch (seed
-    0), the grid-shift and draw generators, and the stage inputs from one
-    training-mode forward (tools/micro_bench.py:43-69)."""
-    model = PrimitiveNet(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    0), the forward's and the step's grid shifts, the draw generator, and
+    the stage inputs from one training-mode forward
+    (tools/micro_bench.py:43-69)."""
+    model = PrimitiveNet(cfg, seed=0).to(dev)
     batch = step_lib.batch_to_device(
         {k: v for k, v in synth_batch(cfg, cfg.batch_size, seed=0).items() if k != "index"},
         dev)
-    shifts = torch.Generator(device=dev).manual_seed(0)      # the voxel grids' shifts
+    shift = torch.from_numpy(threefry.uniform(threefry.key(0), (2, 3))).to(dev)
     with torch.no_grad():
-        out = step_lib.train_forward(model, batch, generator=shifts)
+        out = step_lib.train_forward(model, batch, r1=shift)
     b, n = batch["T_gt"].shape
     gt_pc = batch["gt_pc"]
     return SimpleNamespace(
         model=model, optimizer=step_lib.make_optimizer(cfg, model.parameters()),
-        batch=batch, shifts=shifts,
+        batch=batch, shift=shift, step_shift=step_lib.grid_shift(threefry.key(0), 0, dev),
         draws=torch.Generator(device=dev).manual_seed(0),   # random stage inputs
         out=out, b=b, n=n,
         points=torch.cat([gt_pc, batch["gt_normal"]], dim=-1),
@@ -112,7 +121,7 @@ def main(argv: list[str] | None = None) -> list[tuple[str, float]]:
 
     cfg = bench_config()
     x = inputs(cfg, dev)
-    model, batch, shifts, out = x.model, x.batch, x.shifts, x.out
+    model, batch, out = x.model, x.batch, x.out
     b, n, points, emb, pid = x.b, x.n, x.points, x.emb, x.pid
     gt_pc = batch["gt_pc"]
     k = cfg.nn_nb
@@ -133,7 +142,8 @@ def main(argv: list[str] | None = None) -> list[tuple[str, float]]:
             lambda p: knn_ops.knn_indices(p, k, cfg.knn_impl), randn(b, n, 64)))
 
     if "encoder" in stages:
-        enc = _seeded(DGCNNEncoderGn(nn_nb=k, knn_impl=cfg.knn_impl, mode=cfg.mode), dev)
+        enc = _seeded(DGCNNEncoderGn(nn_nb=k, knn_impl=cfg.knn_impl, mode=cfg.mode),
+                      build_encoder_rules(), dev)
         enc_params = list(enc.parameters())
 
         def enc_grad(p):
@@ -146,7 +156,7 @@ def main(argv: list[str] | None = None) -> list[tuple[str, float]]:
     if "model_fwd" in stages:
         with torch.no_grad():
             report("model fwd (full)", time_fn(
-                lambda: step_lib.train_forward(model, batch, generator=shifts)))
+                lambda: step_lib.train_forward(model, batch, r1=x.shift)))
 
     def graph_fn():
         return [graph_mask(cfg, x, i) for i in range(b)]
@@ -177,7 +187,8 @@ def main(argv: list[str] | None = None) -> list[tuple[str, float]]:
 
     if "head" in stages:
         vx = voxelize()
-        head = _seeded(InstanceHead(cfg.num_primitives, ih.channels, ih.grid_size), dev).train()
+        head = _seeded(InstanceHead(cfg.num_primitives, ih.channels, ih.grid_size),
+                       build_instance_head_rules(), dev).train()
 
         def head_grad(feats):
             feats = feats.detach().requires_grad_(True)
@@ -218,7 +229,8 @@ def main(argv: list[str] | None = None) -> list[tuple[str, float]]:
 
     if "step" in stages:
         report("full train step", time_fn(
-            lambda: step_lib.train_step(model, x.optimizer, batch, shifts), iters=5, warmup=1))
+            lambda: step_lib.train_step(model, x.optimizer, batch, r1=x.step_shift),
+            iters=5, warmup=1))
     return lines
 
 

@@ -15,8 +15,10 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from gcanet_tpu_torch.models.layers import BatchNorm, Dense, init_lecun_normal_
+from gcanet_tpu_torch.models.layers import BatchNorm, Dense
 from gcanet_tpu_torch.ops import pointnet2 as p2
+from gcanet_tpu_torch.utils.flax_init import init_from_seed
+from gcanet_tpu_torch.utils.from_jax import build_library_rules
 
 
 class SharedMLP(nn.Module):
@@ -32,6 +34,11 @@ class SharedMLP(nn.Module):
         for conv, bn in zip(self.convs, self.bns):
             x = torch.relu(bn(conv(x)))
         return x
+
+
+def _dense_names(mlp: SharedMLP) -> dict:
+    """The flax children of a ``SharedMLP`` that its rule table counts."""
+    return {f"Dense_{i}": {} for i in range(len(mlp.convs))}
 
 
 def query_and_group(xyz: torch.Tensor, new_xyz: torch.Tensor,
@@ -64,17 +71,18 @@ def _group_width(in_channels: int, use_xyz: bool) -> int:
 class PointnetSAModuleMSG(nn.Module):
     """Multi-scale-grouping set abstraction (pointnet2_modules.py:62-135):
     ``forward(xyz, features)`` -> ``(new_xyz [B, S, 3], [B, S, sum of the
-    mlps' last widths])``; ``npoint=None`` groups all points into one."""
+    mlps' last widths])``; ``npoint=None`` groups all points into one.
+    Weights: the JAX module's ``init`` with ``PRNGKey(seed)``."""
 
     def __init__(self, npoint: Optional[int], radii: Sequence[float],
                  nsamples: Sequence[int], mlps: Sequence[Sequence[int]],
-                 in_channels: int = 0, use_xyz: bool = True,
-                 generator: torch.Generator | None = None):
+                 in_channels: int = 0, use_xyz: bool = True, seed: int = 0):
         super().__init__()
         self.npoint, self.radii, self.nsamples, self.use_xyz = npoint, radii, nsamples, use_xyz
         width = _group_width(in_channels, use_xyz)
         self.mlps = nn.ModuleList(SharedMLP(width, mlp) for mlp in mlps)
-        init_lecun_normal_(self, generator or torch.Generator().manual_seed(0))
+        init_from_seed(self, build_library_rules("sa_msg", {
+            f"SharedMLP_{j}": _dense_names(m) for j, m in enumerate(self.mlps)}), seed)
 
     @classmethod
     def make(cls, mlp: Sequence[int], npoint: Optional[int] = None,
@@ -104,13 +112,14 @@ class PointnetFPModule(nn.Module):
     """Feature propagation (pointnet2_modules.py:169-209): the known points'
     features at the unknown ones by inverse-distance weights over their 3
     nearest, concatenated with the unknown points' own, through a
-    ``SharedMLP``.  ``in_channels`` = known + unknown feature widths."""
+    ``SharedMLP``.  ``in_channels`` = known + unknown feature widths.
+    Weights: the JAX module's ``init`` with ``PRNGKey(seed)``."""
 
-    def __init__(self, mlp: Sequence[int], in_channels: int,
-                 generator: torch.Generator | None = None):
+    def __init__(self, mlp: Sequence[int], in_channels: int, seed: int = 0):
         super().__init__()
         self.mlp = SharedMLP(in_channels, mlp)
-        init_lecun_normal_(self, generator or torch.Generator().manual_seed(0))
+        init_from_seed(self, build_library_rules(
+            "fp", {"SharedMLP_0": _dense_names(self.mlp)}), seed)
 
     def forward(self, unknown: torch.Tensor, known: Optional[torch.Tensor],
                 unknown_feats: Optional[torch.Tensor],

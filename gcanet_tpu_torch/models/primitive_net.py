@@ -36,13 +36,15 @@ from gcanet_tpu_torch.config import Config, check_supported
 from gcanet_tpu_torch.models.dgcnn import DGCNNEncoderGn
 from gcanet_tpu_torch.models.instance_head import InstanceHead, InstanceHeadOutput
 from gcanet_tpu_torch.models.layers import (MLP, Dense, GroupNorm, conv_gn_act,
-                                            dense_gn, init_lecun_normal_, remat)
+                                            dense_gn, remat)
 from gcanet_tpu_torch.models.offset import OffsetPredModule
 from gcanet_tpu_torch.models.offset_dual import OffsetPredModuleDual
 from gcanet_tpu_torch.ops import grouping as grouping_ops
 from gcanet_tpu_torch.ops import knn as knn_ops
 from gcanet_tpu_torch.ops import voxelize as vox_ops
 from gcanet_tpu_torch.ops.mathutil import safe_norm
+from gcanet_tpu_torch.utils.flax_init import init_from_seed
+from gcanet_tpu_torch.utils.from_jax import build_rules
 
 
 class ModelOutput(NamedTuple):
@@ -71,11 +73,12 @@ def canonicalize_params(raw: torch.Tensor) -> torch.Tensor:
 class PrimitiveNet(nn.Module):
     """The flagship model: ``forward(xyz, normals)`` -> ``ModelOutput``.
 
-    Weights are random, drawn from ``generator`` (default: seeded with
-    ``cfg.seed``), until a checkpoint is loaded.
+    Weights are random until a checkpoint is loaded: the JAX model's
+    ``init`` with ``PRNGKey(seed)`` (default ``cfg.seed``), drawn by
+    ``utils/flax_init.py``.
     """
 
-    def __init__(self, cfg: Config, generator: torch.Generator | None = None):
+    def __init__(self, cfg: Config, seed: int | None = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
@@ -128,22 +131,19 @@ class PrimitiveNet(nn.Module):
         self._instance_head = (head,)
         for name, child in head.named_children():
             self.add_module(name, child)
-        if generator is None:
-            generator = torch.Generator().manual_seed(cfg.seed)
-        init_lecun_normal_(self, generator)
+        init_from_seed(self, build_rules(cfg.mode, cfg.ablation, cfg.offset_variant == "dual"),
+                       cfg.seed if seed is None else seed)
 
     @property
     def instance_head(self) -> InstanceHead:
         return self._instance_head[0]
 
     def forward(self, xyz: torch.Tensor, normals: torch.Tensor,
-                r1: torch.Tensor | None = None,
-                generator: torch.Generator | None = None, chunk=None) -> ModelOutput:
-        """In training mode the voxel grids shift by ``r1 [2, 3]`` when
-        given, else by a draw from ``generator`` (on the model's device);
-        both are unused in eval mode.  ``chunk``: this batch is one chunk of
-        a batch served over several devices (``parallel/chunks.py``), whose
-        proposal cap it shares."""
+                r1: torch.Tensor | None = None, chunk=None) -> ModelOutput:
+        """In training mode the voxel grids shift by ``r1 [2, 3]``
+        (``train/step.py::grid_shift``), unused in eval mode.  ``chunk``:
+        this batch is one chunk of a batch served over several devices
+        (``parallel/chunks.py``), whose proposal cap it shares."""
         cfg = self.cfg
         b, n, _ = xyz.shape
         num_cls = cfg.num_primitives
@@ -218,7 +218,7 @@ class PrimitiveNet(nn.Module):
             xyz.reshape(b * n, 3), embedding.reshape(b * n, -1),
             proposals.point_pid, num_proposals=cfg.instance_head.max_proposals,
             grid_size=cfg.instance_head.grid_size,
-            rand_quantize=self.training, r1=r1, generator=generator)
+            rand_quantize=self.training, r1=r1)
         instance = self.instance_head(vx.feats, vx.active, vx.entry_voxel,
                                       proposals.point_pid)
 

@@ -15,8 +15,10 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
-from gcanet_tpu_torch.models.layers import Dense, init_lecun_normal_
+from gcanet_tpu_torch.models.layers import Dense
 from gcanet_tpu_torch.models.transformer import dot_product_attention, layer_norm
+from gcanet_tpu_torch.utils.flax_init import init_from_seed
+from gcanet_tpu_torch.utils.from_jax import build_library_rules
 
 
 class _Projections(nn.Module):
@@ -77,12 +79,13 @@ def _head(d_model: int, out: int) -> nn.Sequential:
 class QueryDecoder(nn.Module):
     """query_decoder.py:104-239 with iterative mask-guided attention:
     ``x [B, N, in_channel]`` -> ``{"labels", "masks", "scores",
-    "parameters", "aux_outputs"}``."""
+    "parameters", "aux_outputs"}``.  Weights: the JAX module's ``init`` with
+    ``PRNGKey(seed)``."""
 
     def __init__(self, num_layer: int = 6, num_query: int = 100, num_class: int = 18,
                  in_channel: int = 32, d_model: int = 256, nhead: int = 8,
                  hidden_dim: int = 1024, iter_pred: bool = True, attn_mask: bool = True,
-                 use_pe: bool = False, generator: torch.Generator | None = None):
+                 use_pe: bool = False, seed: int = 0):
         super().__init__()
         self.iter_pred, self.attn_mask = iter_pred, attn_mask
         self.input_proj = nn.Sequential(Dense(in_channel, d_model), layer_norm(d_model),
@@ -100,12 +103,9 @@ class QueryDecoder(nn.Module):
         self.self_attention_layers = nn.ModuleList(
             SelfAttentionLayer(d_model, nhead) for _ in range(num_layer))
         self.ffn_layers = nn.ModuleList(FFN(d_model, hidden_dim) for _ in range(num_layer))
-        generator = generator or torch.Generator().manual_seed(0)
-        init_lecun_normal_(self, generator)
-        with torch.no_grad():
-            for p in (self.query, self.pe):
-                if p is not None:
-                    p.normal_(generator=generator)
+        names = {f"FFN_{i}": {} for i in range(num_layer)}
+        init_from_seed(self, build_library_rules(
+            "query_decoder", dict(names, **({"pe": {}} if use_pe else {}))), seed)
 
     def _predict(self, q: torch.Tensor, mask_feats: torch.Tensor):
         qn = self.out_norm(q)

@@ -24,10 +24,12 @@ from torch import nn
 
 from gcanet_tpu_torch.config import Config, check_supported
 from gcanet_tpu_torch.models.instance_head import InstanceHead, InstanceHeadOutput, ResidualBlock
-from gcanet_tpu_torch.models.layers import MLP, MaskedBatchNorm, init_lecun_normal_
+from gcanet_tpu_torch.models.layers import MLP, MaskedBatchNorm
 from gcanet_tpu_torch.ops import grouping as grouping_ops
 from gcanet_tpu_torch.ops import segment as seg
 from gcanet_tpu_torch.ops import voxelize as vox_ops
+from gcanet_tpu_torch.utils.flax_init import init_from_seed
+from gcanet_tpu_torch.utils.from_jax import build_scene_rules
 
 
 class SceneUNet(nn.Module):
@@ -116,12 +118,13 @@ class SoftGroupNet(nn.Module):
     instance head is bf16 whatever ``compute_bf16`` says, as in the JAX
     package.  Grouping is soft per class (``cfg.scene_soft_grouping``) or
     the flagship's argmax partition with both affinity gates off.  Weights
-    are random, seeded with ``cfg.seed``, until a checkpoint is loaded.
+    are random until a checkpoint is loaded: the JAX model's ``init`` with
+    ``PRNGKey(seed)`` (default ``cfg.seed``).
     """
 
     def __init__(self, cfg: Config, scene_grid: int = 64, channels: int = 32,
                  compute_bf16: bool = False, semantic_only: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, seed: int | None = None):
         super().__init__()
         check_supported(cfg, scene=True)
         if scene_grid % 4:
@@ -139,7 +142,8 @@ class SoftGroupNet(nn.Module):
         self.offset_linear = MLP(channels, 3, hidden_features=channels)
         if not semantic_only:
             self.instance_head = InstanceHead(num_cls, channels, cfg.instance_head.grid_size)
-        init_lecun_normal_(self, torch.Generator().manual_seed(cfg.seed))
+        init_from_seed(self, build_scene_rules(not semantic_only),
+                       cfg.seed if seed is None else seed)
 
     def _backbone(self, xyz: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
         """Voxelise (scatter-mean per voxel), U-Net, gather back to the
@@ -164,19 +168,18 @@ class SoftGroupNet(nn.Module):
         return h.reshape(b, self.channels, g3)[bid, :, vid.reshape(-1).long()]
 
     def forward(self, xyz: torch.Tensor, feats: torch.Tensor, x4_split: bool = False,
-                r1: torch.Tensor | None = None,
-                generator: torch.Generator | None = None, chunk=None) -> SoftGroupOutput:
+                r1: torch.Tensor | None = None, chunk=None) -> SoftGroupOutput:
         """``x4_split`` (one scene, 4 | N) runs the backbone on the 4
         interleaved parts ``[p::4]`` as a batch of 4 and re-interleaves the
         point features (the S3DIS test protocol, softgroup.py:380-411).  In
-        training mode the proposal grids shift by ``r1 [2, 3]`` when given,
-        else by a draw from ``generator`` (on the model's device); both are
-        unused in eval mode.  ``chunk``: this batch is one chunk of a batch
-        served over several devices (``parallel/chunks.py``), whose proposal
-        cap and ``min_npoint`` it shares."""
-        if self.training and not self.semantic_only and r1 is None and generator is None:
-            raise ValueError("the training forward draws its grid shift from r1 or a "
-                             "generator; it never uses torch's global RNG")
+        training mode the proposal grids shift by ``r1 [2, 3]``
+        (``train/step.py::grid_shift``), unused in eval mode.  ``chunk``:
+        this batch is one chunk of a batch served over several devices
+        (``parallel/chunks.py``), whose proposal cap and ``min_npoint`` it
+        shares."""
+        if self.training and not self.semantic_only and r1 is None:
+            raise ValueError("the training forward shifts its proposal grids by r1 "
+                             "(train/step.py::grid_shift); it never uses torch's global RNG")
         cfg = self.cfg
         b, n, _ = feats.shape
         num_cls = cfg.num_primitives
@@ -219,6 +222,6 @@ class SoftGroupNet(nn.Module):
         vx = vox_ops.clusters_voxelization(
             xyz.reshape(b * n, 3), pfeat, proposals.point_pid,
             num_proposals=ih.max_proposals, grid_size=ih.grid_size,
-            rand_quantize=self.training, r1=r1, generator=generator)
+            rand_quantize=self.training, r1=r1)
         instance = self.instance_head(vx.feats, vx.active, vx.entry_voxel, proposals.point_pid)
         return SoftGroupOutput(semantic_scores, pt_offsets, proposals, instance)

@@ -14,16 +14,19 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from gcanet_tpu_torch.models.layers import BatchNorm, Dense, init_lecun_normal_, leaky_relu
+from gcanet_tpu_torch.models.layers import BatchNorm, Dense, leaky_relu
 from gcanet_tpu_torch.ops import knn as knn_ops
+from gcanet_tpu_torch.utils.flax_init import init_from_seed
+from gcanet_tpu_torch.utils.from_jax import build_splinenet_rules
 
 
 class DGCNNControlPoints(nn.Module):
     """``forward(points [B, N, 3], weights [B, N] | None)`` -> control grid
-    ``[B, cp^2, 3]``; ``model.train()`` selects batch statistics."""
+    ``[B, cp^2, 3]``; ``model.train()`` selects batch statistics.  Weights:
+    the JAX module's ``init`` with ``PRNGKey(seed)``."""
 
     def __init__(self, num_control_points: int = 20, k: int = 40, mode: int = 0,
-                 generator: torch.Generator | None = None):
+                 seed: int = 0):
         super().__init__()
         self.num_control_points = num_control_points
         self.k = k
@@ -40,7 +43,7 @@ class DGCNNControlPoints(nn.Module):
         self.conv7 = Dense(1024, 1024)
         self.bn7 = BatchNorm(1024)
         self.conv8 = Dense(1024, 3 * num_control_points ** 2)
-        init_lecun_normal_(self, generator or torch.Generator().manual_seed(0))
+        init_from_seed(self, build_splinenet_rules(), seed)
 
     def forward(self, points: torch.Tensor, weights: torch.Tensor | None = None) -> torch.Tensor:
         x, skips = points, []

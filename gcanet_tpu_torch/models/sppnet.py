@@ -22,9 +22,11 @@ from torch import nn
 from gcanet_tpu_torch.config import Config
 from gcanet_tpu_torch.losses import losses as L
 from gcanet_tpu_torch.models.dgcnn import DGCNNEncoderGn
-from gcanet_tpu_torch.models.layers import Dense, GroupNorm, dense_gn, init_lecun_normal_
+from gcanet_tpu_torch.models.layers import Dense, GroupNorm, dense_gn
 from gcanet_tpu_torch.models.primitive_net import canonicalize_params
 from gcanet_tpu_torch.ops.mathutil import safe_norm
+from gcanet_tpu_torch.utils.flax_init import init_from_seed
+from gcanet_tpu_torch.utils.from_jax import build_sppnet_rules
 
 
 class SPPNetOutput(NamedTuple):
@@ -37,11 +39,11 @@ class SPPNetOutput(NamedTuple):
 class PrimitiveNetSPP(nn.Module):
     """``forward(xyz, normals)`` -> ``SPPNetOutput``.  ``num_primitives``
     and ``emb_size`` default to the reference's 10 and 50 (the registry
-    passes neither, as in the JAX package).  Weights are random, drawn from
-    ``generator`` (default: seeded with ``cfg.seed``)."""
+    passes neither, as in the JAX package).  Weights are random: the JAX
+    model's ``init`` with ``PRNGKey(seed)`` (default ``cfg.seed``)."""
 
     def __init__(self, cfg: Config, num_primitives: int = 10, emb_size: int = 50,
-                 generator: torch.Generator | None = None):
+                 seed: int | None = None):
         super().__init__()
         self.cfg = cfg
         self.encoder = DGCNNEncoderGn(nn_nb=cfg.nn_nb, knn_impl=cfg.knn_impl, mode=5)
@@ -54,9 +56,7 @@ class PrimitiveNetSPP(nn.Module):
             self.add_module(f"mlp_{name}_prob1", Dense(256, 256))
             self.add_module(f"bn_{name}_prob1", GroupNorm(4, 256))
             self.add_module(f"mlp_{name}_prob2", Dense(256, out))
-        if generator is None:
-            generator = torch.Generator().manual_seed(cfg.seed)
-        init_lecun_normal_(self, generator)
+        init_from_seed(self, build_sppnet_rules(), cfg.seed if seed is None else seed)
 
     def _head(self, name: str, x_all: torch.Tensor) -> torch.Tensor:
         h = torch.relu(dense_gn(getattr(self, f"mlp_{name}_prob1"),

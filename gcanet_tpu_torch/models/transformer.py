@@ -17,7 +17,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from gcanet_tpu_torch.models.layers import Dense, init_lecun_normal_
+from gcanet_tpu_torch.models.layers import Dense
+from gcanet_tpu_torch.utils.flax_init import init_from_seed
+from gcanet_tpu_torch.utils.from_jax import build_library_rules
 
 _BLOCKED = -0.7 * torch.finfo(torch.float32).max
 
@@ -78,16 +80,21 @@ class _Layer(nn.Module):
         self.ff = FeedForward(dim, mlp_dim)
 
 
+def _attention_names(depth: int) -> dict:
+    """The flax children of a ``Transformer`` that its rule table counts."""
+    return {f"Attention_{i}": {} for i in range(depth)}
+
+
 class Transformer(nn.Module):
     """transformer.py:78-91: ``depth`` x (pre-norm attention, pre-norm
-    feed-forward), each residual.  Weights drawn from ``generator``
-    (default: seeded with 0; a ``ViT`` passes its own)."""
+    feed-forward), each residual.  Weights: the JAX module's ``init`` with
+    ``PRNGKey(seed)``."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int,
-                 generator: torch.Generator | None = None):
+                 seed: int = 0):
         super().__init__()
         self.layers = nn.ModuleList(_Layer(dim, heads, dim_head, mlp_dim) for _ in range(depth))
-        init_lecun_normal_(self, generator or torch.Generator().manual_seed(0))
+        init_from_seed(self, build_library_rules("transformer", _attention_names(depth)), seed)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for layer in self.layers:
@@ -97,26 +104,22 @@ class Transformer(nn.Module):
 
 
 class ViT(nn.Module):
-    """transformer.py:93-136: ``img [B, C, H, W]`` -> logits ``[B, classes]``."""
+    """transformer.py:93-136: ``img [B, C, H, W]`` -> logits ``[B, classes]``.
+    Weights: the JAX module's ``init`` with ``PRNGKey(seed)``."""
 
     def __init__(self, image_size: int, patch_size: int, num_classes: int, dim: int,
                  depth: int, heads: int, mlp_dim: int, pool: str = "cls",
-                 channels: int = 3, dim_head: int = 64,
-                 generator: torch.Generator | None = None):
+                 channels: int = 3, dim_head: int = 64, seed: int = 0):
         super().__init__()
         self.patch_size, self.pool = patch_size, pool
         n = (image_size // patch_size) ** 2
-        generator = generator or torch.Generator().manual_seed(0)
         self.to_patch_embedding = Dense(patch_size * patch_size * channels, dim)
         self.cls_token = nn.Parameter(torch.empty(1, 1, dim))
         self.pos_embedding = nn.Parameter(torch.empty(1, n + 1, dim))
-        self.transformer = Transformer(dim, depth, heads, dim_head, mlp_dim, generator)
+        self.transformer = Transformer(dim, depth, heads, dim_head, mlp_dim)
         self.mlp_head = nn.Sequential(layer_norm(dim), Dense(dim, num_classes))
-        for m in (self.to_patch_embedding, self.mlp_head):      # the transformer drew its own
-            init_lecun_normal_(m, generator)
-        with torch.no_grad():
-            self.cls_token.normal_(generator=generator)
-            self.pos_embedding.normal_(generator=generator)
+        init_from_seed(self, build_library_rules(
+            "vit", {"Transformer_0": _attention_names(depth)}), seed)
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         p = self.patch_size

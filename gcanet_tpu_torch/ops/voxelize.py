@@ -38,12 +38,14 @@ def clusters_voxelization(coords: torch.Tensor,      # [B*N, 3]
                           grid_size: int,
                           rand_quantize: bool = False,
                           r1: torch.Tensor | None = None,
-                          generator: torch.Generator | None = None,
                           scale: float | None = None) -> VoxelizedProposals:
-    """``rand_quantize`` shifts each proposal's grid by one ``[2, 3]``
-    uniform draw shared by every proposal (``torch.rand(3)`` at
-    dgcnn-4.py:1341-1342): ``r1`` when given, else drawn from
-    ``generator`` (which must live on ``coords``' device)."""
+    """``rand_quantize`` shifts each proposal's grid by ``r1``, one ``[2,
+    3]`` uniform draw shared by every proposal (``torch.rand(3)`` at
+    dgcnn-4.py:1341-1342; the training step's is the JAX step's,
+    ``train/step.py::grid_shift``)."""
+    if rand_quantize and r1 is None:
+        raise ValueError("rand_quantize shifts the grids by r1: pass the step's draw "
+                         "(train/step.py::grid_shift)")
     ch, n_total = point_pid.shape
     g = grid_size
     g3 = g * g * g
@@ -64,8 +66,6 @@ def clusters_voxelization(coords: torch.Tensor,      # [B*N, 3]
     clusters_scale = torch.clamp(clusters_scale, max=scale)  # [P]
     cmin = cmin * clusters_scale[:, None]
     if rand_quantize:
-        if r1 is None:
-            r1 = torch.rand((2, 3), generator=generator, device=coords.device)
         # fp32, so a bf16 grid origin promotes to fp32 here, as in JAX
         r1 = r1.to(device=cmin.device, dtype=torch.float32)
         rng_range = cmax * clusters_scale[:, None] - cmin

@@ -22,11 +22,11 @@ and eval protocol are the JAX tool's:
   ``pointwise_semantic_eval``, ``instances_from_masks`` with the scannetv2
   label offset 2, the background column dropped, and ``evaluate_matches``
   with ``min_npoint=1``;
-* the weights come from ``--seed`` (``init_lecun_normal_``), Adam at
-  ``Config.learning_rate``; the proposal grids shift by draws from one
-  ``torch.Generator`` seeded with ``seed + 1``, where the JAX tool passes
-  the one key ``PRNGKey(seed + 1)`` to every step: the random streams differ
-  from JAX's, as every port trainer's do.
+* the weights are the JAX tool's for ``--seed`` (flax's init from
+  ``PRNGKey(seed)``, ``utils/flax_init.py``), Adam at
+  ``Config.learning_rate``; step i's proposal grids shift by the JAX
+  step's ``uniform(fold_in(PRNGKey(seed + 1), i), (2, 3))``
+  (``train/step.py::grid_shift``).
 
 The file starts with a ``#`` line naming the device and the command
 (``tools/gate_report.py`` reads it as the header).  It runs on the card;
@@ -47,7 +47,6 @@ import torch
 from gcanet_tpu_torch.config import Config, InstanceHeadConfig, scene_grouping_defaults
 from gcanet_tpu_torch.convergence_run import header, write_row
 from gcanet_tpu_torch.data.synthetic import synth_scene_batch
-from gcanet_tpu_torch.models.layers import init_lecun_normal_
 from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
 from gcanet_tpu_torch.parallel.dist import pick_device
 from gcanet_tpu_torch.train import instance_eval
@@ -55,6 +54,7 @@ from gcanet_tpu_torch.train import instances as inst_utils
 from gcanet_tpu_torch.train import scene_step
 from gcanet_tpu_torch.train import step as step_lib
 from gcanet_tpu_torch.train.trainer import prefetch_to_device
+from gcanet_tpu_torch.utils import threefry
 from gcanet_tpu_torch.utils.transfer import fetch
 
 CLS_OFFSET = 2          # scannetv2: the synthetic scenes' semantic = class + 2
@@ -149,9 +149,8 @@ def main(argv: list[str] | None = None) -> None:
     args = parser().parse_args(argv)
     dev = pick_device(args.device, 1, "the scene convergence run")
     cfg = make_config(args)
-    model = SoftGroupNet(cfg, scene_grid=args.grid, compute_bf16=cfg.scene_bf16)
-    init_lecun_normal_(model, torch.Generator().manual_seed(args.seed))
-    model.to(dev)
+    model = SoftGroupNet(cfg, scene_grid=args.grid, compute_bf16=cfg.scene_bf16,
+                         seed=args.seed).to(dev)
     optimizer = step_lib.make_optimizer(cfg, model.parameters())
     scenes = eval_scenes(cfg, args)
     scenes_dev = [tuple(torch.as_tensor(np.asarray(b[k], np.float32), device=dev)
@@ -161,7 +160,7 @@ def main(argv: list[str] | None = None) -> None:
         hosts = [fetch(eval_forward(model, xyz, feats)) for xyz, feats in scenes_dev]
         return scene_metrics(hosts, scenes, cfg.num_primitives)
 
-    generator = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    shift_key = threefry.key(args.seed + 1)       # tools/scene_convergence_run.py:137
     t0 = time.time()
     with open(args.out, "w") as log:
         log.write(header(dev, "gcanet_tpu_torch.scene_convergence_run", argv))
@@ -176,8 +175,8 @@ def main(argv: list[str] | None = None) -> None:
                                 "ap50": round(ap50, 4),
                                 "t_min": round((time.time() - t0) / 60, 1)})
             if step < args.steps:
-                metrics = scene_step.scene_train_step(model, optimizer, next(batches),
-                                                      generator)
+                metrics = scene_step.scene_train_step(
+                    model, optimizer, next(batches), r1=step_lib.grid_shift(shift_key, step, dev))
                 if (step + 1) % args.eval_every == 0:
                     loss = float(metrics["total_loss"])
     print("done")

@@ -67,25 +67,25 @@ def fixed_module_names(cfg: Config) -> tuple:
 
 def scene_train_step(model: SoftGroupNet, optimizer: torch.optim.Optimizer,
                      batch: Mapping[str, torch.Tensor],
-                     generator: torch.Generator | None = None,
                      r1: torch.Tensor | None = None) -> Dict[str, torch.Tensor]:
     """One step: forward in training mode, backward, optimizer step.
 
     ``batch`` holds tensors on the model's device; the proposal grids shift
-    by ``r1 [2, 3]`` when given, else by a draw from ``generator``.  The
-    modules named in ``cfg.fixed_modules`` are frozen as the JAX step freezes
-    them: their parameters get no gradient (``grad = None``, which every
-    torch optimizer skips, weight decay included) and their running
-    statistics are put back after the forward, which still normalises them
-    with batch statistics (no ``.eval()``); the freeze comes before the
-    group's mean under data parallelism (JAX ``scene_step.py:123-129``).
+    by ``r1 [2, 3]`` (``step.grid_shift``; a ``semantic_only`` model needs
+    none).  The modules named in ``cfg.fixed_modules`` are frozen as the
+    JAX step freezes them: their parameters get no gradient (``grad =
+    None``, which every torch optimizer skips, weight decay included) and
+    their running statistics are put back after the forward, which still
+    normalises them with batch statistics (no ``.eval()``); the freeze
+    comes before the group's mean under data parallelism (JAX
+    ``scene_step.py:123-129``).
     Returns the loss dict and ``total_loss`` as detached device tensors."""
     cfg = model.cfg
     check_trainable(cfg, scene=True)
     model.train()
     frozen = [getattr(model, name) for name in fixed_module_names(cfg) if hasattr(model, name)]
     saved = [(buf, buf.clone()) for m in frozen for buf in m.buffers()]
-    out = model(batch["xyz"], batch["feats"], r1=r1, generator=generator)
+    out = model(batch["xyz"], batch["feats"], r1=r1)
     total, ld = compute_scene_losses(cfg, out, batch)
     optimizer.zero_grad(set_to_none=True)
     total.backward()

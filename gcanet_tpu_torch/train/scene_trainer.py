@@ -93,7 +93,8 @@ class SceneTrainer(Trainer):
 
     # ------------------------------------------------------------------ steps
     def _train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return scene_step.scene_train_step(self.model, self.optimizer, batch, self.generator)
+        return scene_step.scene_train_step(self.model, self.optimizer, batch,
+                                           r1=self._next_shift())
 
     @torch.no_grad()
     def _eval_forward(self, batch: Dict[str, np.ndarray]) -> List[torch.Tensor]:

@@ -34,6 +34,7 @@ from gcanet_tpu_torch.losses import losses as L
 from gcanet_tpu_torch.models.primitive_net import ModelOutput, PrimitiveNet
 from gcanet_tpu_torch.parallel.dist import all_reduce_mean, data_parallel_world
 from gcanet_tpu_torch.train import instances as inst_utils
+from gcanet_tpu_torch.utils import threefry
 from gcanet_tpu_torch.utils.precision import _map_floats
 
 
@@ -158,9 +159,21 @@ def batch_to_device(batch: Mapping[str, np.ndarray], device: torch.device | str
     return out
 
 
+def grid_shift(base: threefry.Key, step: int, device: torch.device | str) -> torch.Tensor:
+    """Training step ``step``'s shift of the proposals' voxel grids, the
+    ``r1 [2, 3]`` the JAX step draws: ``uniform(fold_in(base, step), (2,
+    3))`` (JAX ``train/step.py:222``, ``scene_step.py:113``), computed on
+    the host and copied to ``device`` through pinned memory without
+    waiting (no host sync).  Every data-parallel rank gets the same, as
+    every JAX shard gets the same key."""
+    t = torch.from_numpy(threefry.uniform(threefry.fold_in(base, step), (2, 3)))
+    if torch.device(device).type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
 def train_forward(model: PrimitiveNet, batch: Mapping[str, torch.Tensor],
-                  r1: torch.Tensor | None = None,
-                  generator: torch.Generator | None = None) -> ModelOutput:
+                  r1: torch.Tensor | None = None) -> ModelOutput:
     """The step's forward in training mode.  ``precision="bf16"`` (JAX
     ``train/step.py:194-213``): the model runs on bf16 copies of its
     parameters (``functional_call``; the gradient flows back through the
@@ -169,30 +182,28 @@ def train_forward(model: PrimitiveNet, batch: Mapping[str, torch.Tensor],
     output is cast to fp32 before the losses."""
     model.train()
     if model.cfg.precision != "bf16":
-        return model(batch["gt_pc"], batch["gt_normal"], r1=r1, generator=generator)
+        return model(batch["gt_pc"], batch["gt_normal"], r1=r1)
     params = {k: p.to(torch.bfloat16) for k, p in model.named_parameters()}
     out = torch.func.functional_call(
         model, params, (batch["gt_pc"].to(torch.bfloat16), batch["gt_normal"].to(torch.bfloat16)),
-        {"r1": r1, "generator": generator})
+        {"r1": r1})
     return _map_floats(out, torch.float32)
 
 
 def train_step(model: PrimitiveNet, optimizer: torch.optim.Optimizer,
                batch: Mapping[str, torch.Tensor],
-               generator: torch.Generator | None = None,
                r1: torch.Tensor | None = None) -> Dict[str, torch.Tensor]:
     """One step: forward in training mode, backward, optimizer step.
 
     ``batch`` holds tensors on the model's device; the voxel grids shift by
-    ``r1 [2, 3]`` when given, else by a draw from ``generator`` (on that
-    device; every rank's is seeded alike, as every JAX shard gets the same
-    key).  Under data parallelism the gradients, losses and statistics are
+    ``r1 [2, 3]`` (``grid_shift``: every rank's is the same, as every JAX
+    shard gets the same key).  Under data parallelism the gradients, losses and statistics are
     the group's means (module docstring).  Returns the loss dict and
     ``total_loss`` as detached device tensors: nothing is copied to the host.
     """
     cfg = model.cfg
     check_trainable(cfg)
-    out = train_forward(model, batch, r1=r1, generator=generator)
+    out = train_forward(model, batch, r1=r1)
     total, loss_dict = compute_losses(cfg, out, batch)
     optimizer.zero_grad(set_to_none=True)
     total.backward()

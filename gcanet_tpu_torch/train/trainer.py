@@ -44,6 +44,7 @@ from gcanet_tpu_torch.parallel.dist import (broadcast_module, collect_results,
                                             is_main_process, pick_device, shard_bounds)
 from gcanet_tpu_torch.train import metrics as metric_utils
 from gcanet_tpu_torch.train import step as step_lib
+from gcanet_tpu_torch.utils import threefry
 from gcanet_tpu_torch.utils.transfer import fetch
 
 LOG_EVERY = 50
@@ -208,8 +209,7 @@ class Trainer:
         cfg = self.cfg
         self.model = build_model(cfg).to(self.device)
         self.optimizer = step_lib.make_optimizer(cfg, self.model.parameters())
-        # draws the voxel grid shifts; on the model's device
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.step = 0           # training steps taken, the JAX state's ``step``
         n_params = sum(p.numel() for p in self.model.parameters())
         print(f"parameters number: {n_params / 1e6:.2f} M")
         self.start_epoch = 0
@@ -248,7 +248,7 @@ class Trainer:
         if self.main:
             os.makedirs(self.ckpt_dir, exist_ok=True)
             torch.save({"epoch": epoch, "metrics": dict(metrics or {}),
-                        "model_state_dict": self.model.state_dict(),
+                        "step": self.step, "model_state_dict": self.model.state_dict(),
                         "optimizer_state_dict": self.optimizer.state_dict()}, path)
         if self.world > 1:
             dist.barrier()
@@ -262,6 +262,7 @@ class Trainer:
         self.model.load_state_dict(ckpt["model_state_dict"])
         self.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
         self.start_epoch = int(ckpt["epoch"])
+        self.step = int(ckpt.get("step", 0))
         print(f"Successfully Load Model with {self.start_epoch} epoch...")
 
     def _prune_checkpoints(self, epoch: int) -> None:
@@ -332,6 +333,7 @@ class Trainer:
         the global ``example/sec``."""
         cfg = self.cfg
         self._set_lr(epoch)
+        self._epoch_key = threefry.key(cfg.seed * 7919 + epoch)      # JAX trainer.py:293
         history: List[Dict[str, torch.Tensor]] = []
         step_t0 = time.time()
         batches = prefetch_to_device(self._train_batches(epoch, num_batches), self.device)
@@ -349,8 +351,15 @@ class Trainer:
                 step_t0 = time.time()
         return history
 
+    def _next_shift(self) -> torch.Tensor:
+        """This step's voxel-grid shift, as the JAX trainer draws it: the
+        epoch's key folded with the global step (``step.grid_shift``)."""
+        r1 = step_lib.grid_shift(self._epoch_key, self.step, self.device)
+        self.step += 1
+        return r1
+
     def _train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return step_lib.train_step(self.model, self.optimizer, batch, self.generator)
+        return step_lib.train_step(self.model, self.optimizer, batch, r1=self._next_shift())
 
     def test_one_epoch(self, epoch: int):
         """Evaluate every test object: ``eval_step`` on the device, one copy

@@ -101,6 +101,18 @@ def _encoder_rules() -> list[_Rule]:
     ]
 
 
+def build_encoder_rules() -> list[_Rule]:
+    """``DGCNNEncoderGn`` alone, as the root of its own flax tree (the JAX
+    per-stage timer inits it so, tools/micro_bench.py:82)."""
+    return [(p.removeprefix("encoder."), f[1:], k, b) for p, f, k, b in _encoder_rules()]
+
+
+def build_instance_head_rules() -> list[_Rule]:
+    """``InstanceHead`` alone, as the root of its own flax tree
+    (tools/micro_bench.py:135)."""
+    return _instance_head_rules("", ())
+
+
 def build_rules(mode: int = 5, ablation: bool = False, dual: bool = False) -> list[_Rule]:
     """The flagship key map (models/dgcnn-hais-concat-direct-4.py).  Modes 5
     and 0 share it (only ``conv1``'s, ``conv_normal``'s and ``conv3``'s

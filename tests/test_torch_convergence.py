@@ -15,8 +15,9 @@ without compiling a JAX step:
   the same random host arrays;
 * a toy run of each (2 steps, an eval every step) on the CPU writes the
   JAX rows (keys, rounding) after a header, prints them and ``done``, and
-  ``tools/gate_report.py`` reads the file; without a card and without
-  ``--device cpu`` each tool raises.
+  ``tools/gate_report.py`` reads the file; its grid shifts are the JAX
+  tool's exactly; without a card and without ``--device cpu`` each tool
+  raises.
 """
 
 import argparse
@@ -27,6 +28,7 @@ import json
 import math
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -290,7 +292,18 @@ def test_toy_run_writes_the_jax_rows(family, tmp_path, capsys, monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             module.main(TOY[family] + ["--out", str(path)])
     argv = TOY[family] + ["--device", "cpu", "--out", str(path)]
+    # each step's grid shift is the JAX tool's: PRNGKey(seed + 1) folded
+    # with the step
+    owner, name = ((convergence_run.step_lib, "train_step") if family == "abc"
+                   else (scene_convergence_run.scene_step, "scene_train_step"))
+    shifts, step_fn = [], getattr(owner, name)
+    monkeypatch.setattr(owner, name, lambda *a, r1: (shifts.append(r1.numpy().copy()),
+                                                     step_fn(*a, r1=r1))[1])
     module.main(argv)
+    assert len(shifts) == 2
+    for step, r1 in enumerate(shifts):
+        np.testing.assert_array_equal(r1, np.asarray(jax.random.uniform(
+            jax.random.fold_in(jax.random.PRNGKey(1), step), (2, 3))))
     printed = capsys.readouterr().out.splitlines()
     header, rows = _gate_report().load_run(str(path))
     assert header == f"cpu; python -m {module.__name__} {' '.join(argv)}"

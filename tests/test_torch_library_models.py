@@ -96,7 +96,10 @@ def test_splinenet_matches_jax(mode):
     weights = np.random.default_rng(1).uniform(0.5, 1.0, (8, 48)).astype(np.float32)
     jmod = JSpline(num_control_points=4, k=8, mode=mode)
     params, stats = _init(jmod, pts)
-    tmod = DGCNNControlPoints(num_control_points=4, k=8, mode=mode)
+    tmod = DGCNNControlPoints(num_control_points=4, k=8, mode=mode, seed=2)
+    if mode == 0:
+        law.check_values(tmod, *law.jax_init(lambda r: jmod.init(r, pts), 2),
+                         family="splinenet")
     law.check_against_jax(tmod, params, stats, family="splinenet", values=False)
     tmod.load_state_dict(state_dict_from_jax(params, stats, family="splinenet"))
 
@@ -177,7 +180,9 @@ def test_vit_matches_jax(pool):
               mlp_dim=32, pool=pool, dim_head=8)
     jmod = JViT(**kw)
     params, _ = _init(jmod, img)
-    tmod = ViT(**kw)
+    tmod = ViT(**kw, seed=1)
+    if pool == "cls":
+        law.check_values(tmod, *law.jax_init(lambda r: jmod.init(r, img), 1), family="vit")
     law.check_against_jax(tmod, params, None, family="vit", values=False)
     tmod.load_state_dict(state_dict_from_jax(params, None, family="vit"))
     cot = np.random.default_rng(6).standard_normal((2, 5)).astype(np.float32)
@@ -233,7 +238,9 @@ def test_transformer_mask_matches_jax():
     mask[1, :2] = False
     jmod = JTransformer(dim=16, depth=2, heads=2, dim_head=8, mlp_dim=32)
     params, _ = _init(jmod, x, mask)
-    tmod = Transformer(dim=16, depth=2, heads=2, dim_head=8, mlp_dim=32)
+    tmod = Transformer(dim=16, depth=2, heads=2, dim_head=8, mlp_dim=32, seed=3)
+    law.check_values(tmod, *law.jax_init(lambda r: jmod.init(r, x, mask), 3),
+                     family="transformer")
     law.check_against_jax(tmod, params, None, family="transformer", values=False)
     tmod.load_state_dict(state_dict_from_jax(params, None, family="transformer"))
     want = jax.jit(lambda p, a, m: jmod.apply({"params": p}, a, m))(params, x, mask)
@@ -251,7 +258,9 @@ def decoder():
               hidden_dim=32, use_pe=True)
     jmod = JQueryDecoder(**kw)
     params, _ = _init(jmod, x)
-    tmod = QueryDecoder(**kw)
+    tmod = QueryDecoder(**kw, seed=4)
+    law.check_values(tmod, *law.jax_init(lambda r: jmod.init(r, x), 4),
+                     family="query_decoder")
     law.check_against_jax(tmod, params, None, family="query_decoder", values=False)
     tmod.load_state_dict(state_dict_from_jax(params, None, family="query_decoder"))
     want = jax.tree.map(np.asarray, jax.jit(lambda p, a: jmod.apply({"params": p}, a))(params, x))

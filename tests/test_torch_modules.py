@@ -68,7 +68,8 @@ def models(tmp_path_factory):
     the port's own draw is held to flax's truncated lecun-normal
     (``tests/torch_init_law.py``): the default flagship (4.4 million
     weights, built only) by its bound and law, the small one against the
-    JAX ``PrimitiveNet.init`` values."""
+    JAX ``PrimitiveNet.init`` values of the same seed (``cfg.seed``, 0),
+    each within 4 float32 units in the last place."""
     jcfg = JConfig(**SMALL, instance_head=JIHConfig(grid_size=G, max_proposals=P))
     jmodel = JPrimitiveNet(jcfg)
     init_params, init_stats = once(tmp_path_factory, "modules_init", lambda: _jax_init(jmodel))
@@ -76,6 +77,7 @@ def models(tmp_path_factory):
         grid_size=G, max_proposals=P)))
     law.check_law([PrimitiveNet(Config())])
     law.check_against_jax(tmodel, init_params, init_stats, family="flagship", values=True)
+    law.check_values(tmodel, init_params, init_stats, family="flagship")
     rng = np.random.default_rng(0)
     params = perturb(init_params, rng)
     stats = perturb(init_stats, rng)

@@ -131,12 +131,16 @@ def _weights(jmod, args, seed):
             jax.tree_util.tree_map_with_path(fill, shapes["batch_stats"]))
 
 
-def _run_both(jmod, tmod, family, args, train):
+def _run_both(jmod, tmod, family, args, train, seeded=False):
     """``jmod`` and ``tmod`` on the same ``args`` (numpy; None passes
     through) from the same weights (``tmod``'s own draw first held to the
-    JAX tree by ``tests/torch_init_law.py``); returns the outputs and, in training
-    mode, both sides' new running statistics as port state_dicts."""
+    JAX tree by ``tests/torch_init_law.py``, with ``seeded`` to the JAX
+    module's ``init`` values of its seed 0); returns the outputs and, in
+    training mode, both sides' new running statistics as port state_dicts."""
     jargs = [None if a is None else jnp.asarray(a) for a in args]
+    if seeded:
+        law.check_values(tmod, *law.jax_init(lambda r: jmod.init(r, *jargs, train=False), 0),
+                         family=family)
     params, stats = _weights(jmod, jargs, 7)
     law.check_against_jax(tmod, params, stats, family=family, values=False)
     tmod.load_state_dict(state_dict_from_jax(params, stats, family=family))
@@ -170,7 +174,8 @@ def test_sa_module_matches_jax(case, train):
     else:
         jmod = jmods.PointnetSAModule.make(kw["mlps"][0])
         tmod = tmods.PointnetSAModule.make(kw["mlps"][0], in_channels=8)
-    (jxyz, jf), (txyz, tf), new = _run_both(jmod, tmod, "sa_msg", (xyz, feats), train)
+    (jxyz, jf), (txyz, tf), new = _run_both(jmod, tmod, "sa_msg", (xyz, feats), train,
+                                            seeded=not train)
     np.testing.assert_array_equal(txyz.numpy(), np.asarray(jxyz))
     assert tf.shape == jf.shape
     np.testing.assert_allclose(tf.detach().numpy(), np.asarray(jf), **FP32)
@@ -188,7 +193,8 @@ def test_fp_module_matches_jax(known):
         None, _cloud(13, n=1, c=6))
     _assert_no_knn_ties(_sqdist(unknown, _cloud(12, n=32)), 3)
     jmod, tmod = jmods.PointnetFPModule(mlp=[16, 8]), tmods.PointnetFPModule([16, 8], 10)
-    want, got, new = _run_both(jmod, tmod, "fp", (unknown, kxyz, ufeats, kfeats), True)
+    want, got, new = _run_both(jmod, tmod, "fp", (unknown, kxyz, ufeats, kfeats), True,
+                               seeded=known)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **FP32)
     for k, v in tmod.state_dict().items():
         np.testing.assert_allclose(v.numpy(), new[k].numpy(), err_msg=k, **STATS)

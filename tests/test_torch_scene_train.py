@@ -57,6 +57,7 @@ from gcanet_tpu_torch.models.softgroup_scene import SoftGroupNet
 from gcanet_tpu_torch.parallel import dist as pdist
 from gcanet_tpu_torch.train import scene_step
 from gcanet_tpu_torch.train import step as tstep
+from gcanet_tpu_torch.utils import threefry
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
 from tests.torch_once import once, release_memory  # noqa: F401 (autouse)
 
@@ -407,21 +408,22 @@ def test_remat_gives_the_same_step():
 
 
 def test_grid_shift_takes_r1_or_generator_never_the_global_rng():
+    """The training forward's grid shift is the ``r1`` it is given (the
+    step's draw from JAX's stream, ``step.grid_shift``): the same ``r1``
+    gives the same instances, another ``r1`` others; without one it raises,
+    and it never touches torch's global RNG."""
     model = _tiny_model().train()
     batch = tstep.batch_to_device(_batch(seed=8), "cpu")
     xyz, feats = batch["xyz"], batch["feats"]
     state = torch.get_rng_state()
-    outs = [model(xyz, feats, generator=torch.Generator().manual_seed(9)) for _ in range(2)]
-    other = model(xyz, feats, generator=torch.Generator().manual_seed(10))
+    shifts = [tstep.grid_shift(threefry.key(9), i, "cpu") for i in range(2)]
+    outs = [model(xyz, feats, r1=shifts[0]) for _ in range(2)]
+    other = model(xyz, feats, r1=shifts[1])
     assert torch.equal(torch.get_rng_state(), state), "the global RNG moved"
     assert int(outs[0].proposals.num) > 0
     for a, b in zip(outs[0].instance, outs[1].instance):
         assert torch.equal(a, b)
     assert not all(torch.equal(a, b) for a, b in zip(outs[0].instance, other.instance))
-    r1 = torch.rand((2, 3), generator=torch.Generator().manual_seed(9))
-    injected = model(xyz, feats, r1=r1)
-    for a, b in zip(outs[0].instance, injected.instance):
-        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="global RNG"):
         model(xyz, feats)
     model.eval()(xyz, feats)                 # eval mode draws nothing

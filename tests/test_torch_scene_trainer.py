@@ -39,8 +39,10 @@ from gcanet_tpu_torch.config import (Config, GroupingConfig, InstanceHeadConfig,
                                      scene_grouping_defaults)
 from gcanet_tpu_torch.data import scene_dataset as sd
 from gcanet_tpu_torch.data.synthetic import synth_scene_batch
+from gcanet_tpu_torch.train import scene_step as tscene_step
 from gcanet_tpu_torch.train.scene_trainer import SceneTrainer
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
+from tests import torch_init_law as law
 from tests.torch_once import release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
@@ -72,15 +74,30 @@ def _cfgs(tmp_path, n=N, **kw):
 
 
 def test_epoch_eval_checkpoint_and_resume(tmp_path):
-    jcfg, cfg = _cfgs(tmp_path)
+    """An epoch, an evaluation, a checkpoint and its resume.  The seeded
+    start is the JAX ``SceneTrainer``'s (``init_scene_state`` with
+    ``PRNGKey(cfg.seed)``) within 4 float32 units in the last place, and
+    each step's grid shift the JAX trainer's, exactly."""
+    jcfg, cfg = _cfgs(tmp_path, seed=2)
     trainer = SceneTrainer(cfg, device="cpu")
     try:
         assert trainer.train_data is None and trainer.cls_offset == 2
+        z = jnp.zeros((1, N, 3))
+        law.check_values(trainer.model, *law.jax_init(lambda r: jsg.SoftGroupNet(jcfg).init(
+            {"params": r}, z, z, train=False, rng=r), cfg.seed), family="scene")
         for i, b in enumerate(trainer._train_batches(3, 2)):
             want = jsynth_scene_batch(jcfg, B, seed=3000 + i)
             for k in want:
                 np.testing.assert_array_equal(np.asarray(b[k]), np.asarray(want[k]), err_msg=k)
-        history = trainer.train_one_epoch(0, num_batches=2)
+        shifts = []
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tscene_step, "scene_train_step", lambda *a, r1, _f=tscene_step.
+                       scene_train_step: (shifts.append(r1.numpy().copy()), _f(*a, r1=r1))[1])
+            history = trainer.train_one_epoch(0, num_batches=2)
+        for step, r1 in enumerate(shifts):
+            np.testing.assert_array_equal(r1, np.asarray(jax.random.uniform(
+                jax.random.fold_in(jax.random.PRNGKey(cfg.seed * 7919), step), (2, 3))))
+        assert len(shifts) == 2
         assert len(history) == 2
         assert all(np.isfinite(float(m["total_loss"])) for m in history)
         assert set(history[0]) == {"semantic_loss", "offset_loss", "cls_loss", "mask_loss",

@@ -63,6 +63,7 @@ from gcanet_tpu_torch.parallel import dist as pdist
 from gcanet_tpu_torch.serve import Predictor
 from gcanet_tpu_torch.train import step as tstep
 from gcanet_tpu_torch.train.trainer import Trainer
+from gcanet_tpu_torch.utils import threefry
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
 from tests.torch_once import jit_init, once, release_memory  # noqa: F401 (autouse)
 
@@ -349,12 +350,10 @@ def test_rand_quantize_voxelization_with_injected_r1():
     np.testing.assert_allclose(got.feats.detach().numpy(), np.asarray(want.feats),
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(ft.grad.numpy(), np.asarray(want_grad), rtol=1e-5, atol=1e-6)
-    # without r1 the draw comes from the generator, reproducibly
-    draws = [tvox.clusters_voxelization(torch.from_numpy(coords), ft, torch.from_numpy(pid),
-                                        p, g, rand_quantize=True,
-                                        generator=torch.Generator().manual_seed(5)).entry_voxel
-             for _ in range(2)]
-    assert torch.equal(*draws)
+    # the shift is r1 alone: without one it raises
+    with pytest.raises(ValueError, match="r1"):
+        tvox.clusters_voxelization(torch.from_numpy(coords), ft, torch.from_numpy(pid),
+                                   p, g, rand_quantize=True)
 
 
 def test_edge_conv_max_splits_tied_gradients_as_jax():
@@ -446,9 +445,8 @@ def test_five_steps_loss_decreases():
     model = PrimitiveNet(cfg)
     opt = tstep.make_optimizer(cfg, model.parameters())
     batch = tstep.batch_to_device(synth_batch(cfg, B, seed=0), "cpu")
-    gen = torch.Generator().manual_seed(0)
-    losses = [float(tstep.train_step(model, opt, batch, gen)["total_loss"])
-              for _ in range(5)]
+    losses = [float(tstep.train_step(model, opt, batch, r1=tstep.grid_shift(
+        threefry.key(0), i, "cpu"))["total_loss"]) for i in range(5)]
     assert np.isfinite(losses).all()
     assert losses[-1] < losses[0], losses
 
@@ -482,13 +480,13 @@ def test_training_refuses_unported_options(tmp_path, field, value):
         return
     check_trainable(cfg)
     Trainer(cfg, device="cpu").close()
-    metrics = tstep.train_step(model, opt, batch, torch.Generator().manual_seed(0))
+    metrics = tstep.train_step(model, opt, batch, r1=tstep.grid_shift(threefry.key(0), 0, "cpu"))
     assert np.isfinite(float(metrics["total_loss"]))
     Predictor(cfg, device="cpu")                 # serving accepts the knob too
 
 
 def test_trainer_epoch_checkpoint_and_seeds(tmp_path):
-    cfg = _tcfg().replace(log_dir=str(tmp_path / "log"), data_path=str(tmp_path))
+    cfg = _tcfg().replace(log_dir=str(tmp_path / "log"), data_path=str(tmp_path), seed=1)
     trainer = Trainer(cfg, device="cpu")
     try:
         assert trainer.device.type == "cpu" and trainer.start_epoch == 0
@@ -496,7 +494,18 @@ def test_trainer_epoch_checkpoint_and_seeds(tmp_path):
         for i, b in enumerate(trainer._train_batches(2, 2)):
             want = jsynth_batch(_jcfg(), B, seed=2000 + i)
             np.testing.assert_array_equal(np.asarray(b["gt_pc"]), want["gt_pc"])
-        history = trainer.train_one_epoch(0, num_batches=2)
+        # each step's grid shift is the JAX trainer's: the epoch's key
+        # PRNGKey(seed * 7919 + epoch) folded with the global step
+        shifts = []
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tstep, "train_step", lambda *a, r1, _f=tstep.train_step: (
+                shifts.append(r1.numpy().copy()), _f(*a, r1=r1))[1])
+            history = trainer.train_one_epoch(0, num_batches=2)
+        for step, r1 in enumerate(shifts):
+            want = jax.random.uniform(jax.random.fold_in(
+                jax.random.PRNGKey(cfg.seed * 7919), step), (2, 3))
+            np.testing.assert_array_equal(r1, np.asarray(want))
+        assert len(shifts) == 2 and trainer.step == 2
         assert len(history) == 2
         assert all(isinstance(m["total_loss"], torch.Tensor) for m in history)
         assert all(np.isfinite(float(m["total_loss"])) for m in history)
@@ -507,7 +516,7 @@ def test_trainer_epoch_checkpoint_and_seeds(tmp_path):
         trainer.close()
     resumed = Trainer(cfg, device="cpu")
     try:
-        assert resumed.start_epoch == 1
+        assert resumed.start_epoch == 1 and resumed.step == 2
         for k, v in trainer.model.state_dict().items():
             assert torch.equal(resumed.model.state_dict()[k], v), k
         assert resumed.optimizer.state_dict()["state"].keys() == \

@@ -27,6 +27,7 @@ framework and to 1e-9 in the other moves its weight by 0 or 0.09 lr).
 import functools
 import json
 
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +42,7 @@ from gcanet_tpu.config import InstanceHeadConfig as JIHConfig
 from gcanet_tpu.data.synthetic import synth_batch as jsynth_batch
 from gcanet_tpu.losses import losses as JL
 from gcanet_tpu.models.instance_head import InstanceHead as JInstanceHead
+from gcanet_tpu.models.layers import MLP as JMLP
 from gcanet_tpu.models.offset import keypoint_permutation
 from gcanet_tpu.models.offset_dual import OffsetPredModuleDual as JDual
 from gcanet_tpu.models.sppnet import PrimitiveNetSPP as JSPP
@@ -60,7 +62,7 @@ from gcanet_tpu_torch.train import instances as tinst
 from gcanet_tpu_torch.train import step as tstep
 from gcanet_tpu_torch.train.trainer import Trainer
 from gcanet_tpu_torch.train_new import main
-from gcanet_tpu_torch.utils import from_jax
+from gcanet_tpu_torch.utils import from_jax, threefry
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
 from test_torch_knobs import _jax_train_step, _port_grads
 from tests import torch_init_law as law
@@ -322,13 +324,43 @@ def test_dual_train_step_bf16_head(dual_step):
 # ---------------------------------------------------------------- entry points
 
 
-def test_registry_and_config_take_the_variants():
+class _OffsetModules(fnn.Module):
+    """The dual-attention and ``ablation`` offset modules under the names the
+    JAX ``PrimitiveNet`` gives them.  Flax keys a parameter by its scope path
+    and counter alone, so this root's ``init`` gives them the values the
+    whole dual and ``ablation`` models' ``init`` gives them, at a fraction of
+    its compile; the models' other parameters are the mode-5 model's, held
+    to its JAX ``init`` in ``test_torch_modules.py``."""
+
+    @fnn.compact
+    def __call__(self, xyz, opc, types, emb):
+        return (JDual(60, TINY["offset_keypoints"], name="OffsetPredModuleDual_0")(
+            xyz, opc, types, emb), JMLP(3, hidden_features=128, name="MLP_0")(opc))
+
+
+def test_registry_and_config_take_the_variants(monkeypatch):
+    """The registry builds each variant; its seeded weights (``cfg.seed``)
+    are the JAX model's ``init`` of that seed within 4 float32 units in the
+    last place: the dual-attention and ``ablation`` offset modules
+    (``_OffsetModules``) and SPP-Net."""
     for name in (DUAL, "gcanet_tpu.models.primitive_net_dual"):
         model = registry.build_model(_tcfg(model_dict=name))
         assert isinstance(model, PrimitiveNet) and model.cfg.offset_variant == "dual"
         assert isinstance(model.offset_pred_block, OffsetPredModuleDual)
     for name in ("models.sppnet", "gcanet_tpu.models.sppnet"):
         assert isinstance(registry.build_model(_tcfg(model_dict=name)), PrimitiveNetSPP)
+    z = jnp.zeros((1, N, 3))
+    offsets, _ = law.jax_init(lambda r: _OffsetModules().init(
+        r, z, jnp.zeros((1, N, 128)), jnp.zeros((1, N, 7)), jnp.zeros((1, N, 64))), 0)
+    for kw, rules in ((dict(offset_variant="dual"), from_jax.build_rules(5, dual=True)),
+                      (dict(ablation=True), from_jax.build_rules(5, ablation=True))):
+        mine = [r for r in rules if r[1][0] in offsets]
+        monkeypatch.setattr(from_jax, "_rules", lambda family, params=None, mine=mine: mine)
+        law.check_values(registry.build_model(_tcfg(**kw)), offsets, None, family="flagship")
+    monkeypatch.undo()
+    law.check_values(registry.build_model(_tcfg(model_dict="models.sppnet")),
+                     *law.jax_init(lambda r: JSPP(_jcfg()).init({"params": r}, z, z), 0),
+                     family="sppnet")
     check_supported(_tcfg(offset_variant="dual"))
     check_trainable(_tcfg(offset_variant="dual", remat=True))
     with pytest.raises(ValueError, match="offset_variant"):
@@ -361,7 +393,7 @@ def test_dual_predictor_trainer_and_cli(tmp_path, monkeypatch):
     model = registry.build_model(bf16)
     metrics = tstep.train_step(model, tstep.make_optimizer(bf16, model.parameters()),
                                tstep.batch_to_device(batch, "cpu"),
-                               torch.Generator().manual_seed(0))
+                               r1=tstep.grid_shift(threefry.key(0), 0, "cpu"))
     assert all(np.isfinite(float(v)) for v in metrics.values())
 
     monkeypatch.setenv("GCA_SYNTH_BATCHES", "1")

@@ -5,7 +5,11 @@ loader; a ``checkpoint_eval{N}.tar`` written by ``save_reference_checkpoint``
 loads with nothing missing; and the transposed conv's spatial flip is
 checked by running one ``ConvTranspose`` on both sides.  The port's writer
 (``utils/reference_ckpt.py``) writes the JAX exporter's file from the same
-weights, key for key and bit for bit, and reads back exactly."""
+weights, key for key and bit for bit, and reads back exactly.  The port's
+copy of ``jax.random`` (``utils/threefry.py``) gives JAX's keys, bits and
+uniforms exactly and its normals and truncated normals within 4 float32
+units in the last place, and flax's draw of that ``ConvTranspose``'s kernel
+(``utils/flax_init.py``)."""
 
 import flax.linen as fnn
 import jax
@@ -20,7 +24,8 @@ from gcanet_tpu.models.primitive_net import PrimitiveNet as JPrimitiveNet
 from gcanet_tpu.utils import import_torch
 from gcanet_tpu_torch.config import Config
 from gcanet_tpu_torch.models.primitive_net import PrimitiveNet
-from gcanet_tpu_torch.utils import from_jax, reference_ckpt
+from gcanet_tpu_torch.utils import flax_init, from_jax, reference_ckpt, threefry
+from tests import torch_init_law as law
 from tests.torch_once import once, release_memory  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
@@ -116,6 +121,34 @@ def test_deconv_flip_by_running_both():
     np.testing.assert_allclose(run(w), want, rtol=1e-5, atol=1e-6)
     unflipped = kernel.transpose(3, 4, 0, 1, 2)
     assert not np.allclose(run(unflipped), want, atol=1e-3)
+    # flax's own draw of the kernel: the root scope's first parameter
+    assert law.ulps(flax_init._draw(0, (), 1, kernel.shape, "lecun"), kernel) <= law.MAX_ULPS
+    _check_threefry()
+
+
+def _check_threefry():
+    """``utils/threefry.py`` against ``jax.random`` on several keys and
+    shapes, one of over 2**16 elements."""
+    for seed in (0, 7919 * 3 + 2, 2**31 - 1):
+        k, jk = threefry.key(seed), jax.random.PRNGKey(seed)
+        np.testing.assert_array_equal(k, np.asarray(jk))
+        for data in (1, 2**32 - 1):
+            np.testing.assert_array_equal(threefry.fold_in(k, data),
+                                          np.asarray(jax.random.fold_in(jk, data)))
+        np.testing.assert_array_equal(threefry.split(k, 3), np.asarray(jax.random.split(jk, 3)))
+    k, jk = threefry.fold_in(threefry.key(5), 9), jax.random.fold_in(jax.random.PRNGKey(5), 9)
+    for shape in ((2, 3), (300, 257)):
+        np.testing.assert_array_equal(threefry.random_bits(k, shape),
+                                      np.asarray(jax.random.bits(jk, shape)))
+        np.testing.assert_array_equal(threefry.uniform(k, shape),
+                                      np.asarray(jax.random.uniform(jk, shape)))
+        np.testing.assert_array_equal(threefry.uniform(k, shape, -0.5, 2.0),
+                                      np.asarray(jax.random.uniform(jk, shape, minval=-0.5,
+                                                                    maxval=2.0)))
+        assert law.ulps(threefry.normal(k, shape),
+                        np.asarray(jax.random.normal(jk, shape))) <= law.MAX_ULPS
+        assert law.ulps(threefry.truncated_normal(k, -2.0, 2.0, shape), np.asarray(
+            jax.random.truncated_normal(jk, -2.0, 2.0, shape))) <= law.MAX_ULPS
 
 
 def _assert_same_file(got: dict, want: dict):

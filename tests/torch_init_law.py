@@ -1,9 +1,10 @@
-"""The law of the port's random weights against flax's, for the tests that
-hold ``models/layers.py::init_lecun_normal_`` to flax's ``lecun_normal()``
+"""The port's random weights against flax's, for the tests that hold
+``utils/flax_init.py`` to flax's init: its law, ``lecun_normal()``
 (``variance_scaling(1.0, "fan_in", "truncated_normal")``: a normal cut at
-±2 of its own σ₀, σ₀ = fan_in**-0.5 / 0.87962566103423978).
+±2 of its own σ₀, σ₀ = fan_in**-0.5 / 0.87962566103423978), and its
+values.
 
-Each model is checked three ways:
+Each model is checked four ways:
 
 1. every drawn weight times √fan_in is at most 2 / 0.87962566103423978
    (``check_bound``);
@@ -20,7 +21,11 @@ Each model is checked three ways:
    has a fan-in-standardised standard deviation within 10% of the JAX
    tensor's (a fan-in other than flax's shows here); biases, norm scales
    and batch statistics equal exactly; the ``normal(1.0)`` parameters are
-   an untruncated N(0, 1).
+   an untruncated N(0, 1);
+4. against the JAX model's ``init`` values of the same seed
+   (``check_values``, the JAX side compiled lean by ``jit_init``): every
+   parameter and running statistic within 4 float32 units in the last
+   place.
 
 The checks run inside existing tests, so they add no test item: check 2
 (with check 1) in the ``models`` fixture of ``test_torch_modules.py``, in
@@ -33,7 +38,13 @@ the tree of shapes that their parity tests fill (``jax.eval_shape``: a JAX
 init of the scene model or a library module compiles for seconds),
 where the JAX side is the rule's value, and a kernel's standard deviation is
 that of flax's draw for its shape, by flax's fan-in rule for a
-``k... x in x out`` kernel (the product of all but its last axis).
+``k... x in x out`` kernel (the product of all but its last axis).  Check
+4 runs where a test builds the port model from a seed: the flagship in the
+``models`` fixture (its JAX init is already there), the dual, ``ablation``
+and SPP-Net models in ``test_registry_and_config_take_the_variants``, the
+scene model in ``test_torch_scene_trainer.py``, the library modules in
+their parity tests (an init of the JAX model with ``train=False``, whose
+forward XLA drops as dead code).
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ from scipy.special import ndtr
 from torch import nn
 
 from gcanet_tpu_torch.utils.from_jax import state_dict_from_jax
+from tests.torch_once import jit_init
 
 TRUNC_STD = 0.87962566103423978
 BOUND = 2 / TRUNC_STD + 1e-6
@@ -65,8 +77,8 @@ _CODES = {"lecun": 1.0, "zeros": 2.0, "ones": 3.0, "normal": 4.0, "constant": 5.
 
 
 def drawn(model: nn.Module) -> dict[str, tuple[np.ndarray, int]]:
-    """The weights ``init_lecun_normal_`` draws, by state_dict key: each
-    with its fan-in."""
+    """The weights drawn from flax's truncated lecun-normal, by state_dict
+    key: each with its fan-in."""
     out = {}
     for name, m in model.named_modules():
         if isinstance(m, nn.Linear):
@@ -182,3 +194,34 @@ def check_against_jax(model: nn.Module, params, stats, family: str, values: bool
                 np.testing.assert_array_equal(port[k], want[k], err_msg=k)
         elif c == _CODES["normal"]:
             assert 0.5 < port[k].std() < 1.5 and np.abs(port[k]).max() > 0, k
+
+
+MAX_ULPS = 4
+
+
+def ulps(a: np.ndarray, b: np.ndarray) -> int:
+    """The largest gap between two float32 arrays in units in the last
+    place (the distance of their bit patterns on the ordered integer line)."""
+    ia, ib = (np.asarray(x, np.float32).view(np.int32).astype(np.int64) for x in (a, b))
+    ia, ib = (np.where(i < 0, -(i & 0x7FFFFFFF), i) for i in (ia, ib))
+    return int(np.abs(ia - ib).max()) if ia.size else 0
+
+
+def jax_init(init, seed: int):
+    """``init(PRNGKey(seed))`` (a flax ``init``) compiled lean
+    (``jit_init``), as numpy ``(params, batch_stats)``."""
+    v = jax.tree.map(np.asarray, jit_init(init, jax.random.PRNGKey(seed)))
+    return v["params"], v.get("batch_stats") or None
+
+
+def check_values(model: nn.Module, params, stats, family: str) -> None:
+    """The port's seeded init ``model`` against the JAX model's ``init``
+    values ``(params, stats)`` of the same seed: every parameter and
+    running statistic within ``MAX_ULPS`` float32 units in the last place
+    (the port's own copy of JAX's stream gives them bit for bit on the
+    CPU)."""
+    want = state_dict_from_jax(params, stats, family=family)
+    got = model.state_dict()
+    assert set(want) <= set(got), set(want) - set(got)
+    worst = max((ulps(got[k].numpy(), w.numpy()), k) for k, w in want.items())
+    assert worst[0] <= MAX_ULPS, f"{worst[1]}: {worst[0]} ulps from the JAX init"
